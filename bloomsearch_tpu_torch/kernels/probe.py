@@ -24,17 +24,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 from typing import Optional, Sequence
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "probe.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libbs_probe.so")
+from . import build
+
+SOURCE = os.path.join(build.CSRC_DIR, "probe.cu")
+LIBRARY = os.path.join(build.BUILD_DIR, "libbs_probe.so")
 
 MODE_PACK, MODE_REDUCE, MODE_CLAUSES = 0, 1, 2
 MAX_TERMS = 32  # the term results live in one 32-bit register per column
@@ -81,41 +79,9 @@ def _count(name: str, C: int, T: int, rows: int, clauses: int = 0) -> None:
 # -- build and bind ---------------------------------------------------------
 
 
-def nvcc_command(output: str) -> list[str]:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", output, SOURCE,
-    ]
-
-
 def build_library(force: bool = False) -> str:
-    """Compile ``csrc/probe.cu`` unless the library is newer than the source.
-
-    Builds to a per-process temporary name and renames into place, so
-    concurrent builders never load a half-written library. Returns the
-    compiler's stderr (its ``-Xptxas -v`` register and shared-memory
-    report); raises RuntimeError when nvcc fails.
-    """
-    if (
-        not force
-        and os.path.exists(LIBRARY)
-        and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-    ):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.build.{os.getpid()}.{threading.get_ident()}"
-    try:
-        result = subprocess.run(
-            nvcc_command(tmp), capture_output=True, text=True, timeout=600
-        )
-        if result.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{result.stderr}")
-        os.replace(tmp, LIBRARY)
-        return result.stderr
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    """Compile ``csrc/probe.cu`` unless the library is newer (``build.py``)."""
+    return build.build_library(SOURCE, LIBRARY, force)
 
 
 def library() -> ctypes.CDLL:

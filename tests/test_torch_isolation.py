@@ -97,15 +97,40 @@ def test_default_cuda_device_raises_without_a_card(tmp_path):
         bt.BloomSearchEngine(bt.BloomSearchEngineConfig(probe_backend="auto"), store, store)
 
 
-@pytest.mark.parametrize(
-    "overrides",
-    [{"row_cache_bytes": 1 << 20}, {"serving_cache_dir": "sidecar"}, {"mesh_devices": 2}],
-)
+@pytest.mark.parametrize("overrides", [{"mesh_devices": 2}])
 def test_later_slices_raise_not_implemented(tmp_path, overrides):
     store = bt.FileSystemDataStore(str(tmp_path))
     config = bt.BloomSearchEngineConfig(device="cpu", **overrides)
     with pytest.raises(NotImplementedError):
         bt.BloomSearchEngine(config, store, store)
+
+
+@pytest.mark.parametrize("sidecar", [False, True])
+def test_serving_mode_builds_a_row_cache_on_the_configured_device(tmp_path, sidecar):
+    from bloomsearch_tpu_torch.rowcache import DeviceRowCache
+    from bloomsearch_tpu_torch.servingcache import ServingStateCache
+
+    store = bt.FileSystemDataStore(str(tmp_path / "store"))
+    config = bt.BloomSearchEngineConfig(
+        device="cpu", row_cache_bytes=1 << 20,
+        serving_cache_dir=str(tmp_path / "sidecar") if sidecar else None,
+    )
+    engine = bt.BloomSearchEngine(config, store, store)
+    assert isinstance(engine._row_cache, DeviceRowCache)
+    assert engine._row_cache.device == torch.device("cpu")
+    assert isinstance(engine._serving_cache, ServingStateCache) == sidecar
+    assert engine.stats()["row_cache"]["pinned_blocks"] == 0
+
+
+def test_row_cache_on_cuda_raises_without_a_card():
+    from bloomsearch_tpu_torch.rowcache import DeviceRowCache
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceRowCache(1 << 20)
+    with pytest.raises(NotImplementedError):
+        DeviceRowCache(1 << 20, mesh_devices=2, device="cpu")
 
 
 def test_host_probe_backend_needs_no_device(tmp_path):
