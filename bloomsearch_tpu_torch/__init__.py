@@ -97,6 +97,14 @@ from .stores import (
     WriteOperation,
     new_simple_meta_store,
 )
+from .objectstore import (
+    InMemoryObjectStore,
+    LocalDirObjectStore,
+    ObjectStoreClient,
+    ObjectStoreDataStore,
+    ObjectStoreMetaStore,
+)
+from .s3 import S3ObjectStore
 from .engine import (
     BlockStats,
     BloomSearchEngine,

@@ -8,18 +8,27 @@ out of the packed survivor bitmap host-side. Files are immutable, so a bank
 column never changes: inserts append, tombstones mark columns dead, and
 compaction rebuilds when the dead fraction grows.
 
-Capacity is padded to a multiple of 128 and grows by doubling, which keeps
-capacities, placements and the ``stats()`` block counts identical to the
-JAX package's (its bytes also count 8-row padding that this layout drops);
-zero-filled columns can never produce a bloom match, so padding and dead
-columns are inherently masked.
+With a mesh (``mesh_devices``, parallel/mesh.py) the block axis shards
+over several devices: ``bank2d`` is then a tuple of ``int32[3 * num_words,
+capacity / n]`` shards, shard i holding columns ``[i*capacity/n,
+(i+1)*capacity/n)`` on mesh device i, and a probe launches the kernel on
+every shard and joins the packed bitmaps in shard order. Without one it is
+a single tensor on one device.
 
-Snapshot consistency: a probe captures ``bank2d`` and the segment
-placements under the lock and may launch after the lock is released.
-Growth and compaction therefore always allocate a NEW tensor, never rewrite
-one a snapshot may hold; an insert writes in place only into slack columns
-past ``used``, which no placement points at, and its copy is ordered on the
-device's current stream before any later launch.
+Capacity is padded to a multiple of 128 × the mesh size and grows by
+doubling, which keeps capacities, placements and the ``stats()`` block
+counts identical to the JAX package's for the same mesh size (its bytes
+also count 8-row padding that this layout drops); zero-filled columns can
+never produce a bloom match, so padding and dead columns are inherently
+masked.
+
+Snapshot consistency: a probe captures ``bank2d`` (the whole tuple of
+shards on a mesh) and the segment placements under the lock and may launch
+after the lock is released. Growth and compaction therefore always allocate
+NEW tensors (every shard), never rewrite one a snapshot may hold; an insert
+writes in place only into slack columns past ``used``, which no placement
+points at, and its copies are ordered on each device's current stream
+before any later launch there.
 """
 
 from __future__ import annotations
@@ -36,8 +45,19 @@ from ..kernels.probe import (
     probe_clauses_pack,
     probe_reduce_and_pack,
 )
-
-LANE = 128
+from ..parallel.mesh import (
+    LANE,
+    default_mesh,
+    mesh_for,
+    shard_bank,
+    sharded_pad_columns,
+    sharded_probe_clauses,
+    sharded_probe_packed,
+    sharded_query_step,
+    sharded_take_columns,
+    sharded_update_columns,
+    sharded_zeros,
+)
 
 
 class BackendReleasedError(RuntimeError):
@@ -81,17 +101,23 @@ _PROBE_BATCH_MAX_CLAUSES = 16
 class Superbank:
     """One device-resident bank for a (m_bits, k, layout) bloom param group.
 
-    ``bank2d`` is ``int32[3 * num_words, capacity]`` on ``device``: row =
-    keyspace*num_words + word, capacity a multiple of 128.
+    ``bank2d`` is ``int32[3 * num_words, capacity]`` on ``device`` (row =
+    keyspace*num_words + word, capacity a multiple of 128), or with a
+    ``mesh`` a tuple of its column shards, one per mesh device (capacity a
+    multiple of 128 × the mesh size; module doc).
     """
 
-    def __init__(self, m_bits: int, k: int, layout: str, device):
+    def __init__(self, m_bits: int, k: int, layout: str, device, mesh=None):
         self.m_bits = m_bits
         self.k = k
         self.layout = layout
         self.num_words = (m_bits + 31) // 32
         self.num_rows = 3 * self.num_words
-        self.device = torch.device(device)
+        self.mesh = mesh
+        # Staging device: uploads land on the first shard's device.
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
+        # Shards must split the 128-column units evenly across devices.
+        self.col_unit = LANE * (mesh.size if mesh is not None else 1)
         self.capacity = 0
         self.used = 0
         self.dead = 0
@@ -103,15 +129,14 @@ class Superbank:
     def nbytes(self) -> int:
         return self.num_rows * self.capacity * 4
 
-    def _zeros(self, cols: int) -> torch.Tensor:
-        return torch.zeros((self.num_rows, cols), dtype=torch.int32, device=self.device)
-
     def _grow(self, min_capacity: int) -> None:
-        new_cap = max(_round_up(min_capacity, LANE), max(LANE, self.capacity * 2))
-        new_bank = self._zeros(new_cap)
-        if self.bank2d is not None:
-            new_bank[:, : self.capacity] = self.bank2d
-        self.bank2d = new_bank
+        new_cap = max(
+            _round_up(min_capacity, self.col_unit), max(self.col_unit, self.capacity * 2)
+        )
+        if self.bank2d is None:
+            self.bank2d = sharded_zeros(self.mesh, self.num_rows, new_cap, self.device)
+        else:
+            self.bank2d = sharded_pad_columns(self.mesh, self.bank2d, new_cap)
         self.capacity = new_cap
 
     def stage(self, host_bank: np.ndarray) -> torch.Tensor:
@@ -138,7 +163,7 @@ class Superbank:
         if self.used + num_cols > self.capacity:
             self._grow(self.used + num_cols)
         # In place, into slack columns no placement points at (module doc).
-        self.bank2d[:, self.used : self.used + num_cols] = staged
+        self.bank2d = sharded_update_columns(self.mesh, self.bank2d, staged, self.used)
         segment = (self.used, num_cols)
         self.segments[key] = segment
         self.used += num_cols
@@ -153,7 +178,7 @@ class Superbank:
         """Rebuild without dead columns once they dominate (``force``: any
         dead column compacts — the backend uses it when live segments fit
         the byte budget but the dead slack holds real device memory past
-        it). The rebuilt bank is a new tensor (module doc)."""
+        it). The rebuilt bank is new tensors (module doc)."""
         if self.dead == 0 or (not force and self.dead * 2 < self.used):
             return
         cols = []
@@ -163,12 +188,13 @@ class Superbank:
             cols.extend(range(start, start + n))
             new_segments[key] = (cursor, n)
             cursor += n
-        new_cap = max(LANE, _round_up(max(cursor, 1), LANE))
-        new_bank = self._zeros(new_cap)
+        new_cap = max(self.col_unit, _round_up(max(cursor, 1), self.col_unit))
         if cols:
-            idx = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=self.device)
-            new_bank[:, :cursor] = self.bank2d.index_select(1, idx)
-        self.bank2d = new_bank
+            self.bank2d = sharded_take_columns(
+                self.mesh, self.bank2d, np.asarray(cols, dtype=np.int64), new_cap
+            )
+        else:
+            self.bank2d = sharded_zeros(self.mesh, self.num_rows, new_cap, self.device)
         self.capacity = new_cap
         self.segments = new_segments
         self.used = cursor
@@ -182,18 +208,28 @@ def superbank_from_reference(
     k: int,
     layout: str,
     device,
+    mesh=None,
 ) -> Superbank:
     """The JAX package's Superbank state -> this package's Superbank.
 
     ``bank2d`` is the reference's uint32[rows8, capacity] (rows padded to a
-    multiple of 8); the padding rows are dropped and every column keeps its
-    placement, so both packages probe the same resident state."""
-    sb = Superbank(m_bits, k, layout, device)
+    multiple of 8; a host copy, or the reference's array itself); the
+    padding rows are dropped and every column keeps its placement, so both
+    packages probe the same resident state. The port's bank shards over
+    ``mesh``; with none, a reference array that lives on an n-device mesh
+    gives an n-shard mesh on ``device`` (``default_mesh``)."""
+    if mesh is None:
+        n = len(getattr(getattr(bank2d, "sharding", None), "device_set", ()))
+        mesh = default_mesh(n, device) if n > 1 else None
+    sb = Superbank(m_bits, k, layout, device, mesh=mesh)
     # A private copy: inserts write the superbank in place.
-    bank2d = np.array(bank2d[: sb.num_rows], dtype=np.uint32)
-    if bank2d.shape[0] != sb.num_rows or bank2d.shape[1] % LANE:
-        raise ValueError(f"bank2d {bank2d.shape} does not fit m_bits={m_bits}")
-    sb.bank2d = torch.from_numpy(bank2d.view(np.int32)).to(sb.device)
+    bank2d = np.array(np.asarray(bank2d)[: sb.num_rows], dtype=np.uint32)
+    if bank2d.shape[0] != sb.num_rows or bank2d.shape[1] % sb.col_unit:
+        raise ValueError(f"bank2d {bank2d.shape} does not fit m_bits={m_bits} on this mesh")
+    if mesh is None:
+        sb.bank2d = torch.from_numpy(bank2d.view(np.int32)).to(sb.device)
+    else:
+        sb.bank2d = shard_bank(mesh, bank2d)
     sb.capacity = bank2d.shape[1]
     sb.segments = dict(segments)
     sb.used = max((s + n for s, n in segments.values()), default=0)
@@ -202,15 +238,22 @@ def superbank_from_reference(
 
 
 class DeviceProbeBackend:
-    """Caches filter banks on one device and serves batched probes.
+    """Caches filter banks on device and serves batched probes.
 
     ``probe_groups`` is the query-path entry point: given every candidate
     (file, bank-group) of a query, it ensures residency, runs ONE probe per
-    superbank (the CUDA kernel on a card, its plain version on the CPU), and
-    returns each file-group's term-match slice.
+    superbank (the CUDA kernel on a card, its plain version on the CPU; on
+    a mesh, one launch on every shard), and returns each file-group's
+    term-match slice.
 
     ``device="cuda"`` with no visible card raises: it never falls back to
     the CPU. Pass ``device="cpu"`` explicitly for the plain versions.
+
+    Multi-device: ``mesh_devices=None`` is auto (every visible device of
+    ``device``'s type when there is more than one; the CPU counts as one),
+    1 is a single device, and n shards every superbank's block axis over
+    n devices (``parallel.mesh.default_mesh``: the first n cards, or n CPU
+    shards). More cards than are visible raises; it never shrinks.
     """
 
     def __init__(
@@ -225,11 +268,7 @@ class DeviceProbeBackend:
                 "device probe backend on 'cuda' but no CUDA device is visible; "
                 "pass device='cpu' to probe with the plain PyTorch versions"
             )
-        if mesh_devices is not None and mesh_devices > 1:
-            raise NotImplementedError(
-                "mesh_devices > 1: block-axis sharding over several GPUs comes "
-                "with the port's mesh slice"
-            )
+        self.mesh = mesh_for(mesh_devices, self.device)
         self.platform = self.device.type
         self.cache_bytes = cache_bytes
         self._lock = threading.RLock()
@@ -272,7 +311,7 @@ class DeviceProbeBackend:
             total = sum(sb.nbytes for sb in self._superbanks.values())
         return {
             "platform": self.platform,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh.size if self.mesh is not None else 1,
             "superbank_bytes": total,
             "superbanks": superbanks,
             "probe_launches": self.launches,
@@ -327,7 +366,7 @@ class DeviceProbeBackend:
                 raise BackendReleasedError("probe backend released")
             sb = self._superbanks.get(mk)
             if sb is None:
-                sb = Superbank(mk[0], mk[1], mk[2], self.device)
+                sb = Superbank(mk[0], mk[1], mk[2], self.device, self.mesh)
                 self._superbanks[mk] = sb
             resident = seg_key in sb.segments
         if not resident:
@@ -341,7 +380,7 @@ class DeviceProbeBackend:
                     raise BackendReleasedError("probe backend released")
                 sb = self._superbanks.get(mk)
                 if sb is None:
-                    sb = Superbank(mk[0], mk[1], mk[2], self.device)
+                    sb = Superbank(mk[0], mk[1], mk[2], self.device, self.mesh)
                     self._superbanks[mk] = sb
                 if seg_key not in sb.segments:
                     sb.insert(seg_key, host_bank, staged=staged)
@@ -404,20 +443,31 @@ class DeviceProbeBackend:
 
         The kernel library builds and loads on the first launch, so this
         moves that one-time cost (and the first launch on each bank) off
-        the first query. ``yield_to`` is polled between launches (the
-        engine's queries-in-flight gate)."""
+        the first query. On a mesh each launch goes through the sharded
+        wrapper, so every shard's device loads the kernel. ``yield_to`` is
+        polled between launches (the engine's queries-in-flight gate)."""
         with self._lock:
             snapshots = [sb.bank2d for sb in self._superbanks.values()]
         launched = 0
+        mesh = self.mesh
         for bank2d in snapshots:
             if bank2d is None:
                 continue
-            probes = torch.zeros((2, 1), dtype=torch.int32, device=self.device)
-            for launch in (
-                lambda: probe_reduce_and_pack(bank2d, probes[0], probes[1], 1, 1, 1),
-                lambda: probe_clauses_pack(bank2d, probes[0], probes[1], 1, 1, [1], [1]),
-                lambda: probe_and_pack(bank2d, probes[0], probes[1], 1, 1),
-            ):
+            if mesh is not None:
+                zero = np.zeros(1, dtype=np.int32)
+                launches = (
+                    lambda: sharded_query_step(mesh, bank2d, zero, zero, 1, 1, 1),
+                    lambda: sharded_probe_clauses(mesh, bank2d, zero, zero, [1], [1], 1, 1),
+                    lambda: sharded_probe_packed(mesh, bank2d, zero, zero, 1, 1),
+                )
+            else:
+                probes = torch.zeros((2, 1), dtype=torch.int32, device=self.device)
+                launches = (
+                    lambda: probe_reduce_and_pack(bank2d, probes[0], probes[1], 1, 1, 1),
+                    lambda: probe_clauses_pack(bank2d, probes[0], probes[1], 1, 1, [1], [1]),
+                    lambda: probe_and_pack(bank2d, probes[0], probes[1], 1, 1),
+                )
+            for launch in launches:
                 if yield_to is not None:
                     yield_to()
                 launch()
@@ -651,11 +701,16 @@ class DeviceProbeBackend:
             pad = (Tp - total_t) * k
             flat_rows = np.pad(flat_rows, (0, pad))
             shifts = np.pad(shifts, (0, pad))
-        # One host-to-device copy for both probe arrays.
-        probes = torch.from_numpy(
-            np.stack([flat_rows, shifts]).astype(np.int32)
-        ).to(bank2d.device)
-        rows_dev, shifts_dev = probes[0], probes[1]
+        mesh = self.mesh
+        if mesh is None:
+            # One host-to-device copy for both probe arrays.
+            probes = torch.from_numpy(
+                np.stack([flat_rows, shifts]).astype(np.int32)
+            ).to(bank2d.device)
+            rows_dev, shifts_dev = probes[0], probes[1]
+        else:
+            # The sharded wrappers copy them once to each shard's device.
+            rows_dev, shifts_dev = flat_rows.astype(np.int32), shifts.astype(np.int32)
 
         # Fusion ladder:
         # 1. Solo flat-AND: the cheapest fully fused reduction.
@@ -669,9 +724,15 @@ class DeviceProbeBackend:
         )
         if solo_fused:
             # Padding terms (t >= total_t) are outside the AND.
-            packed = probe_reduce_and_pack(
-                bank2d, rows_dev, shifts_dev, Tp, k, (1 << total_t) - 1
-            )
+            if mesh is None:
+                packed = probe_reduce_and_pack(
+                    bank2d, rows_dev, shifts_dev, Tp, k, (1 << total_t) - 1
+                )
+            else:
+                packed, _total = sharded_query_step(
+                    mesh, bank2d, rows_dev, shifts_dev, (1 << total_t) - 1, Tp, k
+                )
+                packed = packed[None, :]
         elif all_clauses:
             # One output row per member: bit t of a clause is the batch's
             # term t, bit i of a member is the batch's clause i. Padding
@@ -687,12 +748,20 @@ class DeviceProbeBackend:
                 )
                 member_bits.append(((1 << len(clause_bits)) - 1) ^ ((1 << c0) - 1))
                 t0 += r.T
-            packed = probe_clauses_pack(
-                bank2d, rows_dev, shifts_dev, Tp, k, clause_bits, member_bits
-            )
-        else:
+            if mesh is None:
+                packed = probe_clauses_pack(
+                    bank2d, rows_dev, shifts_dev, Tp, k, clause_bits, member_bits
+                )
+            else:
+                packed = sharded_probe_clauses(
+                    mesh, bank2d, rows_dev, shifts_dev, clause_bits, member_bits, Tp, k
+                )
+        elif mesh is None:
             packed = probe_and_pack(bank2d, rows_dev, shifts_dev, Tp, k)
-        # int32 words on the device; the bytes are the uint32 bitmap.
+        else:
+            packed = sharded_probe_packed(mesh, bank2d, rows_dev, shifts_dev, Tp, k)
+        # int32 words (on the host already on a mesh); the bytes are the
+        # uint32 bitmap.
         packed_host = packed.cpu().numpy().view(np.uint32)
         bits = np.unpackbits(packed_host.view(np.uint8), axis=1, bitorder="little")
         bits = bits[:, :capacity].astype(bool)

@@ -324,11 +324,13 @@ class BloomSearchEngineConfig:
     # result fetches). 0 = never promote inline.
     bank_promote_bytes_per_query: int = 32 * 1024 * 1024
 
-    # Devices for the sharded device probe: superbanks shard their block
-    # axis over a 1-D jax mesh, so filter capacity and probe bandwidth scale
-    # linearly in chips (the reference's data-parallel block pool mapped to
-    # ICI; bloom_tree_engine.go:1019-1054). None = all visible devices when
-    # more than one; 1 = single-device.
+    # Devices for the sharded device probe: superbanks (and the serving
+    # stream) shard their block axis over a 1-D mesh of cards
+    # (parallel/mesh.py), so filter capacity and probe bandwidth scale
+    # linearly in cards (the reference's data-parallel block pool;
+    # bloom_tree_engine.go:1019-1054). None = all visible devices of
+    # ``device``'s type when more than one; 1 = single-device; more cards
+    # than are visible raises.
     mesh_devices: Optional[int] = None
 
     # Bloom filter bit layout: "classic" = reference-parity KM positions;
@@ -721,11 +723,6 @@ class BloomSearchEngine:
             raise InvalidConfigError("bloom_layout must be classic|blocked256")
         if config.mesh_devices is not None and config.mesh_devices < 1:
             raise InvalidConfigError("mesh_devices must be >= 1 (or None for auto)")
-        if config.mesh_devices is not None and config.mesh_devices > 1:
-            raise NotImplementedError(
-                "mesh_devices > 1: block-axis sharding over several GPUs comes "
-                "with the port's mesh slice"
-            )
         if config.row_cache_host_shadow not in ("auto", True, False):
             raise InvalidConfigError('row_cache_host_shadow must be "auto", True, or False')
         if isinstance(config.block_bloom_expected_items, str):

@@ -38,21 +38,29 @@ by verification), never hide a true match.
 This is the JAX package's ``rowcache.py`` on PyTorch. The host logic
 (packing, the combiner, the needle-bitmap cache, the sparse/dense choice,
 eviction, reservation, compaction) is unchanged; capacities stay multiples
-of the 512-chunk unit and pins upload in the same pow2 pieces, so
-capacities, segment coordinates and ``stats()`` equal the JAX package's
-for the same pins. The matrix lives on one device (``mesh_devices > 1``
-raises NotImplementedError), and there is no per-shape compile.
+of the 512 × mesh-size chunk unit and pins upload in the same pow2 pieces,
+so capacities, segment coordinates and ``stats()`` equal the JAX package's
+for the same pins and mesh size, and there is no per-shape compile.
+
+The matrix lives on one device, or with a mesh (``mesh_devices``,
+parallel/mesh.py) it shards its chunk axis: a tuple of ``int32[cap / n,
+128]`` shards, shard i holding logical chunks ``[i*cap/n, (i+1)*cap/n)``
+on mesh device i. Pins, growth and compaction keep it sharded (a pin's
+rows may straddle shards), and every scan on a mesh is the dense scan over
+all shards (``sharded_scan_all_rows``): the segment mode is single-device,
+as in the reference.
 
 Snapshot consistency without immutable arrays (the rule of bloom/bank.py):
-a scan captures ``matrix`` and the segment placements under the lock and
-may launch after the lock is released. Growth, reservation and compaction
-therefore always allocate a NEW tensor; a pin writes in place only into
-slack rows at or past ``used``, which no published segment covers, and
-publishes the new segment (with a version bump that clears the needle
-cache) only after its upload. Uploads, compaction gathers, scan launches
-and their device-to-host copies all run on the device's current stream
-(no code here switches streams), so a tensor freed by compaction or
-release() is never handed out again before a launch that reads it ends.
+a scan captures ``matrix`` (the whole tuple of shards on a mesh) and the
+segment placements under the lock and may launch after the lock is
+released. Growth, reservation and compaction therefore always allocate NEW
+tensors; a pin writes in place only into slack rows at or past ``used``,
+which no published segment covers, and publishes the new segment (with a
+version bump that clears the needle cache) only after its upload. Uploads,
+compaction gathers, scan launches and their device-to-host copies all run
+on each device's current stream (no code here switches streams), so a
+tensor freed by compaction or release() is never handed out again before a
+launch that reads it ends.
 """
 
 from __future__ import annotations
@@ -74,6 +82,15 @@ from .kernels.scan import (
     byte_scan_segments,
     byte_scan_stream,
     scan_word_bucket,
+)
+from .parallel.mesh import (
+    logical_size,
+    mesh_for,
+    sharded_pad_rows,
+    sharded_scan_all_rows,
+    sharded_take_rows,
+    sharded_update_rows,
+    sharded_zeros_rows,
 )
 
 # Stream chunk geometry: 512-byte physical rows (128 packed int32 words, one
@@ -237,38 +254,6 @@ class RowCacheReleasedError(RuntimeError):
     every other device error propagates."""
 
 
-# Stream matrix helpers on one device (the JAX package's parallel/mesh.py
-# row helpers without the mesh). Each returns a NEW tensor except
-# _update_rows, which writes slack rows in place (module doc).
-
-
-def _zeros_rows(rows: int, device) -> torch.Tensor:
-    return torch.zeros((rows, CHUNK_BYTES // 4), dtype=torch.int32, device=device)
-
-
-def _pad_rows(matrix: torch.Tensor, rows: int) -> torch.Tensor:
-    out = _zeros_rows(rows, matrix.device)
-    out[: matrix.shape[0]] = matrix
-    return out
-
-
-def _update_rows(matrix: torch.Tensor, rows: np.ndarray, start: int) -> torch.Tensor:
-    if not rows.flags.writeable:  # torch tensors cannot wrap read-only memory
-        rows = rows.copy()
-    matrix[start : start + rows.shape[0]] = torch.from_numpy(
-        np.ascontiguousarray(rows)
-    ).to(matrix.device)
-    return matrix
-
-
-def _take_rows(matrix: torch.Tensor, idx: np.ndarray, rows: int) -> torch.Tensor:
-    out = _zeros_rows(rows, matrix.device)
-    out[: idx.shape[0]] = matrix.index_select(
-        0, torch.as_tensor(idx, dtype=torch.int64, device=matrix.device)
-    )
-    return out
-
-
 class _PinnedBlock:
     __slots__ = (
         "key", "num_chunks", "num_rows", "always_candidate",
@@ -389,7 +374,11 @@ class DeviceRowCache:
     """LRU cache of pinned blocks keyed by (file pointer, block offset).
 
     ``device="cuda"`` with no visible card raises: it never falls back to
-    the CPU. Pass ``device="cpu"`` for the scan kernel's plain version."""
+    the CPU. Pass ``device="cpu"`` for the scan kernel's plain version.
+    ``mesh_devices`` follows the probe backend's rule (bloom/bank.py): None
+    is every visible device of ``device``'s type when there is more than
+    one, n > 1 shards the stream over n devices, more cards than are
+    visible raises."""
 
     def __init__(
         self,
@@ -404,21 +393,17 @@ class DeviceRowCache:
                 "device row cache on 'cuda' but no CUDA device is visible; "
                 "pass device='cpu' to scan with the plain PyTorch version"
             )
-        if mesh_devices is not None and mesh_devices > 1:
-            raise NotImplementedError(
-                "mesh_devices > 1: block-axis sharding over several GPUs comes "
-                "with the port's mesh slice"
-            )
+        self.mesh = mesh_for(mesh_devices, self.device)
         self.capacity_bytes = capacity_bytes
         # Shadowed pins keep the block's decompressed bytes host-side
         # (~0.94x their device chunk bytes), so the reservation must split
         # the byte budget between the stream and the shadows; shadow-free
         # pins retain only offset/length arrays (a few % of raw).
         self.host_shadow = bool(host_shadow)
-        # Capacity unit in chunks (the JAX package's single-device unit,
-        # kept so capacities and segment coordinates match it; the kernel
-        # itself needs only a multiple of 32).
-        self._chunk_unit = 512
+        # Capacity unit in chunks: the JAX package's 512 x mesh size, kept so
+        # capacities and segment coordinates match it (the kernel itself
+        # needs only a multiple of 32 on each shard).
+        self._chunk_unit = 512 * (self.mesh.size if self.mesh is not None else 1)
         self._lock = threading.Lock()
         # Serializes every MUTATION of the stream matrix (pin uploads,
         # growth copies, compaction) so the slow device work runs OUTSIDE
@@ -484,7 +469,7 @@ class DeviceRowCache:
             "pins": self.pins,
             "evictions": self.evictions,
             "compactions": self.compactions,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh.size if self.mesh is not None else 1,
         }
 
     def _total_bytes_locked(self) -> int:
@@ -596,9 +581,9 @@ class DeviceRowCache:
                 self._reserved_cap = max(self._reserved_cap, bucket.cap)
                 return bucket.cap
             if bucket.matrix is None:
-                matrix = _zeros_rows(cap, self.device)
+                matrix = sharded_zeros_rows(self.mesh, cap, device=self.device)
             else:
-                matrix = _pad_rows(bucket.matrix, cap)
+                matrix = sharded_pad_rows(self.mesh, bucket.matrix, cap)
             with self._lock:
                 bucket.matrix = matrix
                 bucket.cap = cap
@@ -636,9 +621,9 @@ class DeviceRowCache:
             idx = np.concatenate(
                 [np.arange(s, s + n, dtype=np.int64) for s, n in spans]
             )
-            new_matrix = _take_rows(matrix, idx, new_cap)
+            new_matrix = sharded_take_rows(self.mesh, matrix, idx, new_cap)
         else:
-            new_matrix = _zeros_rows(new_cap, self.device)
+            new_matrix = sharded_zeros_rows(self.mesh, new_cap, device=self.device)
         with self._lock:
             bucket.matrix = new_matrix
             bucket.cap = new_cap
@@ -781,7 +766,7 @@ class DeviceRowCache:
                 used = bucket.used
             if used + n_upload > cap:
                 # Growth: double while small, then bounded increments — the
-                # copy in _pad_rows holds old+new concurrently, and
+                # copy in sharded_pad_rows holds old+new concurrently, and
                 # unbounded doubling at multi-GB stream sizes runs out of
                 # device memory.
                 grow = min(cap, max(_GROWTH_STEP_BYTES // CHUNK_BYTES, 1))
@@ -805,9 +790,9 @@ class DeviceRowCache:
                     unit,
                 )
                 if matrix is None:
-                    matrix = _zeros_rows(cap, self.device)
+                    matrix = sharded_zeros_rows(self.mesh, cap, device=self.device)
                 else:
-                    matrix = _pad_rows(matrix, cap)
+                    matrix = sharded_pad_rows(self.mesh, matrix, cap)
             if n_chunks > 0:
                 # Piecewise pow2 upload, greedy pieces >= 512 chunks, with
                 # a yield point between pieces; the final piece zero-pads
@@ -834,7 +819,8 @@ class DeviceRowCache:
                                 ),
                             ]
                         )
-                    matrix = _update_rows(matrix, sub, used + off)
+                    # In place, into slack rows (module doc).
+                    matrix = sharded_update_rows(self.mesh, matrix, sub, used + off)
                     off += piece
 
             # Retained coordinate arrays downcast to int32 (a block is at
@@ -886,13 +872,24 @@ class DeviceRowCache:
     def load_scan_kernel(self) -> None:
         """Build (``nvcc``, at first use) and load the scan kernel library
         when the stream lives on a CUDA device; build errors raise. A scan
-        launched meanwhile waits for the same load."""
-        if self.device.type == "cuda":
-            _scan_kernel.library()
+        launched meanwhile waits for the same load. On a mesh, one 32-chunk
+        dense launch on each shard device loads the kernel on every card."""
+        if self.device.type != "cuda":
+            return
+        _scan_kernel.library()
+        if self.mesh is not None:
+            needle = np.zeros((1, MAX_NEEDLE), dtype=np.int32)
+            lens = np.zeros(1, dtype=np.int32)
+            for dev in self.mesh.distinct_devices():
+                _scan_kernel.byte_scan_stream(
+                    sharded_zeros_rows(None, 32, device=dev), needle, lens,
+                    n_real=1, max_words=SCAN_WORD_BUCKETS[0],
+                ).cpu()
 
     def precompile_scan_programs(self, blocks: list, yield_to=None) -> int:
         """Launch the scan kernel once in dense mode and once in segment
         mode over the current matrix, and fetch both results -> launches.
+        On a mesh: one dense sharded launch (every shard), no segment one.
 
         A one-time check that the kernel launches on this stream (there is
         no per-shape compile; ``load_scan_kernel`` loads the library).
@@ -905,7 +902,7 @@ class DeviceRowCache:
             matrix = bucket.matrix
         if matrix is None:
             return 0
-        phys_cap = int(matrix.shape[0])
+        phys_cap = logical_size(matrix, 0)
         max_chunks = max((b.num_chunks for b in blocks), default=1)
         seg_chunks = max(_round_up_pow2(max(max_chunks, 1)), 512)
         padded = np.zeros((MAX_SCAN_NEEDLES, MAX_NEEDLE), dtype=np.int32)
@@ -913,6 +910,11 @@ class DeviceRowCache:
         max_words = SCAN_WORD_BUCKETS[0]
         if yield_to is not None:
             yield_to()
+        if self.mesh is not None:
+            sharded_scan_all_rows(
+                self.mesh, matrix, padded[:1], lens[:1], n_real=1, max_words=max_words
+            )
+            return 1
         byte_scan_stream(matrix, padded[:1], lens[:1], n_real=1, max_words=max_words).cpu()
         launched = 1
         if seg_chunks * 4 <= phys_cap:
@@ -1054,15 +1056,15 @@ class DeviceRowCache:
         missing = [nd for nd in union if nd not in cached]
 
         # Adaptive scan shape for needles not served from cache:
-        #  - DENSE (requests cover a meaningful fraction of residency):
-        #    scan EVERY resident chunk; the full-residency bitmap also
-        #    feeds the needle cache.
+        #  - DENSE (requests cover a meaningful fraction of residency, or a
+        #    mesh shards the stream): scan EVERY resident chunk; the
+        #    full-residency bitmap also feeds the needle cache.
         #  - SPARSE (few blocks of a big stream — needle queries at
         #    reference scale ask for 3 of 240): the kernel's segment mode
         #    scans just the requested chunk segments in place; both the
         #    scanned bytes and the returned bitmap shrink by the sparsity
         #    factor.
-        phys_cap = int(matrix.shape[0])
+        phys_cap = logical_size(matrix, 0)
         # Unique requested chunk ranges (chunk_start, n_chunks).
         ranges = sorted(
             {
@@ -1081,7 +1083,8 @@ class DeviceRowCache:
         # fall through to the dense scan.
         n_segs = _round_up_pow2(len(ranges)) if ranges else 0
         sparse = (
-            0 < n_segs <= _SPARSE_MAX_SEGS
+            self.mesh is None
+            and 0 < n_segs <= _SPARSE_MAX_SEGS
             and seg_chunks <= phys_cap
             and n_segs * seg_chunks * 4 <= phys_cap
         )
@@ -1118,6 +1121,11 @@ class DeviceRowCache:
                     out = byte_scan_segments(
                         matrix, starts, padded, lens, n_real=n_real,
                         max_words=max_words, seg_chunks=seg_chunks,
+                    )
+                elif self.mesh is not None:
+                    out = sharded_scan_all_rows(
+                        self.mesh, matrix, padded, lens, n_real=n_real,
+                        max_words=max_words,
                     )
                 else:
                     out = byte_scan_stream(
@@ -1179,23 +1187,33 @@ class DeviceRowCache:
             r.done.set()
 
 
-def rowcache_from_reference(ref, device) -> DeviceRowCache:
-    """The JAX package's single-device DeviceRowCache state -> this
-    package's DeviceRowCache on ``device``.
+def rowcache_from_reference(ref, device, mesh=None) -> DeviceRowCache:
+    """The JAX package's DeviceRowCache state -> this package's
+    DeviceRowCache on ``device``.
 
     Copies the stream matrix (as numpy), the segment placements, ``cap``,
     ``used``, ``dead``, the reserved cap and every pinned block (its
     coordinate arrays, flags and shadow bytes or fetcher), so both packages
-    scan the same resident state. Counters start at zero."""
-    if getattr(ref, "mesh", None) is not None:
-        raise ValueError("only a single-device reference cache can be copied")
+    scan the same resident state. Counters start at zero. The port's
+    stream shards over ``mesh``; with none, a reference on an n-device mesh
+    gives an n-shard mesh on ``device`` (its chunk unit is a multiple of
+    the reference's, so ``cap`` splits)."""
+    n = ref.mesh.shape["blocks"] if getattr(ref, "mesh", None) is not None else 1
     cache = DeviceRowCache(
-        ref.capacity_bytes, host_shadow=ref.host_shadow, device=device
+        ref.capacity_bytes, host_shadow=ref.host_shadow, device=device,
+        mesh_devices=n if mesh is None else 1,
     )
+    if mesh is not None and mesh.size > 1:
+        cache.mesh = mesh
+        cache._chunk_unit = 512 * mesh.size
     src, dst = ref._bucket, cache._bucket
     if src.matrix is not None:
         matrix = np.array(src.matrix, dtype=np.int32)  # a private copy
-        dst.matrix = torch.from_numpy(matrix).to(cache.device)
+        dst.matrix = sharded_update_rows(
+            cache.mesh,
+            sharded_zeros_rows(cache.mesh, matrix.shape[0], device=cache.device),
+            matrix, 0,
+        )
     dst.cap, dst.used, dst.dead = src.cap, src.used, src.dead
     dst.segments = dict(src.segments)
     for key, blk in ref._blocks.items():

@@ -35,7 +35,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries checked against the host-probe engine, the scan counters reset
    before it; then the scan kernel against its plain version on the
    resident stream at every shape the engine launched, and a restarted
-   engine that loads every block from the sidecar.
+   engine that loads every block from the sidecar;
+8. mesh (K3): (a) the serving engine's resident superbanks and stream
+   placed with ``shard_bank`` and the row helpers onto a 4-shard mesh (four
+   cards when four are visible, else cuda:0 four times), the needle
+   queries' probe arrays and scan needles driven through the four sharded
+   wrappers, each result bit-identical to the unsharded kernel on the same
+   logical content and to the plain version, with CUDA-event times per
+   sharded call, per shard launch and per unsharded launch; (b) the main
+   path: the serving engine restarted from phase 7's sidecar over a mesh
+   (every card with its default ``mesh_devices=None`` when two or more are
+   visible, else the four shards on cuda:0), every query shape and 16
+   threads against the host-probe engine's rows, the K3 counters set to 0
+   just before its queries and read just after; with two or more cards
+   also ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()``
+   against the plain version.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +90,15 @@ SCAN_MODES = {
     "byte_scan_stream": ("stream", f"{PALLAS}:376"),
     "byte_scan_segments": ("segments", "bloomsearch_tpu/rowcache.py:299"),
 }
+MESH_PY = "bloomsearch_tpu/parallel/mesh.py"
+MESH_WRAPPERS = {
+    # name: (source, TPU function it replaces)
+    "sharded_probe_packed": (PROBE_SOURCE, f"{MESH_PY}:121"),
+    "sharded_query_step": (PROBE_SOURCE, f"{MESH_PY}:167"),
+    "sharded_probe_clauses": (PROBE_SOURCE, f"{MESH_PY}:215"),
+    "sharded_scan_all_rows": (SCAN_SOURCE, f"{MESH_PY}:330"),
+}
+MESH_SHARDS = 4
 SCAN_LENGTHS = (1, 2, 3, 4, 5, 7, 8, 15, 31, 32)
 SEG_CHUNKS = 16_384  # a refscale block is about 15,000 chunks
 PLAIN_PIECE = 32_768  # chunks per plain-version call over a large stream
@@ -654,7 +677,9 @@ def phase_engine(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     pk.reset_launch_counts()
     engine = bt.BloomSearchEngine(
-        config(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30),
+        # One card, whatever the machine has (None would shard over all).
+        config(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30,
+               mesh_devices=1),
         store, store,
     )
     engine.start()
@@ -712,8 +737,10 @@ def phase_engine(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
 class ScanRecorder:
     """Wraps the row cache's two scan wrappers to keep, for each launch
     shape (the key of ``kernels.scan.launch_shapes()``), the arguments of
-    its first launch, so the shape can be re-checked on the resident
-    stream with the engine's own needles and segment starts."""
+    its first launch (the first with a real needle, when one comes), so the
+    shape can be re-checked on the resident stream with the engine's own
+    needles and segment starts; and every distinct set of real needles the
+    engine scanned for (``needle_sets``)."""
 
     def __init__(self):
         import bloomsearch_tpu_torch.rowcache as rc
@@ -721,13 +748,19 @@ class ScanRecorder:
         self.rc = rc
         self.orig = {name: getattr(rc, name) for name in SCAN_MODES}
         self.args: dict[tuple, dict] = {}
+        self.needle_sets: dict[bytes, dict] = {}
         self.lock = threading.Lock()
 
     def _keep(self, key: tuple, **args) -> None:
+        kept = {k: np.array(v, copy=True) if isinstance(v, (np.ndarray, list)) else v
+                for k, v in args.items()}
+        real = bool(np.asarray(kept["lens"])[: kept["n_real"]].any())
         with self.lock:
-            if key not in self.args:
-                self.args[key] = {k: np.array(v, copy=True) if isinstance(v, (np.ndarray, list))
-                                  else v for k, v in args.items()}
+            old = self.args.get(key)
+            if old is None or (real and not np.asarray(old["lens"]).any()):
+                self.args[key] = kept
+            if real:
+                self.needle_sets.setdefault(np.asarray(kept["needles"]).tobytes(), kept)
 
     def __enter__(self):
         orig = self.orig
@@ -787,11 +820,12 @@ def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> d
     return reported
 
 
-def phase_serving(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
+def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7) -> dict:
     """Serving mode on the refscale dataset with bench.py's settings: every
     block pinned in the stream on the card, the needle cache off so warm
     queries scan; then the scan re-check on the resident stream and a
-    restart that warms from the sidecar."""
+    restart that warms from the sidecar in the directory ``sidecar``,
+    which the caller removes (phase 8 restarts from it too)."""
     import bloomsearch_tpu_torch as bt
     from bloomsearch_tpu_torch.kernels import scan as ks
 
@@ -799,8 +833,8 @@ def phase_serving(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
     store = bt.FileSystemDataStore(cache)
     files = store.get_maybe_files_for_query(None)
     n_blocks = sum(len(mf.metadata.data_blocks) for mf in files)
-    sidecar = tempfile.mkdtemp(prefix="bloomsearch-sidecar-")
     serving = dict(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30,
+                   mesh_devices=1,
                    row_cache_bytes=10 << 30, serving_cache_dir=sidecar)
     host = bt.BloomSearchEngine(engine_config(probe_backend="host"), store, store)
     host.start()
@@ -852,6 +886,17 @@ def phase_serving(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
         with engine._row_cache._lock:
             matrix = engine._row_cache._bucket.matrix
         out["scan_cases"] = recheck_scans(ks, matrix, launched, recorder.args)
+        with engine._device_backend._lock:
+            banks = [(sb.bank2d, sb.m_bits, sb.k, sb.layout, sb.num_words)
+                     for sb in engine._device_backend._superbanks.values()]
+        # The resident state, the needles the queries scanned for and the
+        # engine's settings, for phase 8.
+        out["resident"] = {
+            "banks": banks, "matrix": matrix,
+            "needles": list(recorder.needle_sets.values())[:6],
+            "shapes": shapes, "results": results, "store": store,
+            "serving": serving, "n_blocks": n_blocks,
+        }
         del matrix
         engine.stop(timeout=600)
         engine = None
@@ -874,10 +919,397 @@ def phase_serving(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
         if engine is not None:
             engine.stop(timeout=600)
         host.stop(timeout=600)
-        shutil.rmtree(sidecar, ignore_errors=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+# -- phase 8: the mesh (K3) -------------------------------------------------------
+
+
+def probe_bound(T: int, C: int, out_rows: int) -> tuple[float, str]:
+    """K1's least work (kernel_case): the T*K probed rows, the probe arrays
+    and the packed output over the memory rate, or 3 operations per probed
+    word over the 32-bit rate."""
+    nbytes = T * K * C * 4 + T * K * 8 + out_rows * (C // 32) * 4
+    ops = 3 * T * K * C
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations"
+
+
+def needle_probes(shapes: dict, banks: list) -> list[dict]:
+    """Each needle query's probe arrays per superbank, as the engine builds
+    them (terms padded to a power of two with zero probes), with its
+    flat-AND bits and CNF clause and member bits."""
+    from bloomsearch_tpu_torch.bloom.probe import compile_bloom_terms, compile_cnf_clauses
+
+    cases = []
+    for name in ("token", "field", "field_token", "or_tree"):
+        bloom = shapes[name].bloom
+        terms = compile_bloom_terms(bloom)
+        T = len(terms)
+        Tp = 1 << (T - 1).bit_length()
+        mask = compile_cnf_clauses(bloom.expression, terms)
+        clause_bits = [int(sum(1 << t for t in range(T) if row[t])) for row in np.asarray(mask)]
+        for bi, (_, m_bits, k, layout, num_words) in enumerate(banks):
+            word_idx, bit_idx = terms.positions_for(m_bits, k, layout)
+            rows = (terms.ks_idx[:, None].astype(np.int32) * num_words + word_idx).reshape(-1)
+            pad = (Tp - T) * k
+            cases.append({
+                "query": name, "bank": bi, "T": Tp, "K": k,
+                "rows": np.pad(rows, (0, pad)).astype(np.int32),
+                "shifts": np.pad(bit_idx.reshape(-1), (0, pad)).astype(np.int32),
+                "and_bits": (1 << T) - 1, "clause_bits": clause_bits,
+                "member_bits": [(1 << len(clause_bits)) - 1],
+            })
+    return cases
+
+
+def mesh_probe_calls(pm, mesh, case: dict) -> dict:
+    """The three sharded probe wrappers on one case -> {name: (the sharded
+    call on a tuple of shards, the kernel's call on one bank tensor, the
+    plain epilogue and pack of a match matrix)}."""
+    from bloomsearch_tpu_torch.kernels import probe as pk
+
+    T, Kc, rows, shifts = case["T"], case["K"], case["rows"], case["shifts"]
+    cb, mb, ab = case["clause_bits"], case["member_bits"], case["and_bits"]
+    return {
+        "sharded_probe_packed": (
+            lambda b: pm.sharded_probe_packed(mesh, b, rows, shifts, T, Kc),
+            lambda b, r, s: pk.probe_and_pack(b, r, s, T, Kc),
+            lambda m: pk.pack_bitmap_plain(m)),
+        "sharded_query_step": (
+            lambda b: pm.sharded_query_step(mesh, b, rows, shifts, ab, T, Kc)[0][None, :],
+            lambda b, r, s: pk.probe_reduce_and_pack(b, r, s, T, Kc, ab),
+            lambda m: pk.pack_bitmap_plain(pk.reduce_and_plain(m, ab))),
+        "sharded_probe_clauses": (
+            lambda b: pm.sharded_probe_clauses(mesh, b, rows, shifts, cb, mb, T, Kc),
+            lambda b, r, s: pk.probe_clauses_pack(b, r, s, T, Kc, cb, mb),
+            lambda m: pk.pack_bitmap_plain(pk.clauses_plain(m, cb, mb))),
+    }
+
+
+def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
+    """K3 at refscale widths on a 4-shard mesh (step a: every wrapper against
+    the unsharded kernel and the plain version, and its times), the serving
+    engine over a mesh (step b: the main path, whose queries alone give the
+    K3 launch counts) and the entry step (c). Returns ({wrapper name: its
+    kernels-line entry}, the mesh engine's readings)."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch import graft_entry
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_SHARDS:
+        mesh = pm.Mesh(tuple(torch.device("cuda", i) for i in range(MESH_SHARDS)))
+        log(f"mesh: {MESH_SHARDS} shards on {MESH_SHARDS} distinct cards")
+    else:
+        mesh = pm.Mesh((dev,) * MESH_SHARDS)
+        log(f"mesh: {MESH_SHARDS} shards on {dev} ({n_cards} card(s) visible)")
+    banks, matrix = resident["banks"], resident["matrix"]
+
+    # a. The resident state placed on the mesh with the mesh's own helpers.
+    sharded = [pm.shard_bank(mesh, bank2d) for bank2d, *_ in banks]
+    G = matrix.shape[0]
+    G_pad = -(-G // (512 * MESH_SHARDS)) * (512 * MESH_SHARDS)
+    stream = pm.sharded_update_rows(mesh, pm.sharded_zeros_rows(mesh, G_pad, device=dev), matrix, 0)
+    torch.cuda.synchronize()
+    for (bank2d, *_), shards in zip(banks, sharded):
+        log(f"mesh: bank {tuple(bank2d.shape)} -> {MESH_SHARDS} shards of "
+            f"{tuple(shards[0].shape)}")
+    log(f"mesh: stream {tuple(matrix.shape)} -> {MESH_SHARDS} shards of {tuple(stream[0].shape)}")
+    cases = needle_probes(resident["shapes"], banks)
+    needle_sets = resident["needles"]
+    if not needle_sets:
+        raise AssertionError("phase 7 recorded no needle scan to drive")
+
+    # Every needle query's probe arrays through the three probe wrappers and
+    # every recorded needle set through the scan wrapper; each result against
+    # the unsharded kernel on the same logical content (the shards joined)
+    # and against the plain version.
+    joined = [torch.cat([sh.to(dev) for sh in shards], dim=1) for shards in sharded]
+    n_probes = 0
+    for case in cases:
+        bank = joined[case["bank"]]
+        r = torch.from_numpy(case["rows"]).to(dev)
+        s_ = torch.from_numpy(case["shifts"]).to(dev)
+        for name, (call, unsharded, plain) in mesh_probe_calls(pm, mesh, case).items():
+            got = call(sharded[case["bank"]])
+            want = unsharded(bank, r, s_).cpu()
+            plain_out = plain(pk.probe_plain(bank, r, s_, case["T"], case["K"])).cpu()
+            if not (torch.equal(got, want) and torch.equal(got, plain_out)):
+                raise AssertionError(f"{name} {case['query']}: sharded result differs")
+            # The engine's own unsharded bank (C = its capacity) is the prefix.
+            own = unsharded(banks[case["bank"]][0], r, s_).cpu()
+            if not torch.equal(got[:, : own.shape[1]], own):
+                raise AssertionError(f"{name} {case['query']}: differs from the engine's bank")
+            if name == "sharded_query_step":
+                _, total = pm.sharded_query_step(mesh, sharded[case["bank"]], case["rows"],
+                                                 case["shifts"], case["and_bits"], case["T"],
+                                                 case["K"])
+                if total != int(np.unpackbits(got.numpy().view(np.uint8)).sum()):
+                    raise AssertionError("survivor total differs from the bitmap's popcount")
+            n_probes += 1
+    log(f"mesh: {n_probes} sharded probes bit-identical to the unsharded kernel and "
+        f"the plain version; survivor totals equal the popcount")
+    scans = []
+    for args in needle_sets:
+        got = pm.sharded_scan_all_rows(mesh, stream, args["needles"], args["lens"],
+                                       n_real=args["n_real"], max_words=args["max_words"])
+        want = ks.byte_scan_stream(matrix, args["needles"], args["lens"], n_real=args["n_real"],
+                                   max_words=args["max_words"]).cpu()
+        words = G // 32
+        pad = got[:, words:]
+        real = torch.as_tensor([int(v) > 0 for v in args["lens"][: args["n_real"]]])
+        if not torch.equal(got[:, :words], want) or not torch.equal(
+                pad, torch.where(real[:, None], 0, -1).to(torch.int32).expand_as(pad)):
+            raise AssertionError("sharded_scan_all_rows differs from the unsharded kernel")
+        scans.append(got)
+    args0 = needle_sets[0]
+    plain_scan_out = plain_scan(ks, matrix, args0["needles"], args0["lens"], args0["n_real"]).cpu()
+    if not torch.equal(scans[0][:, : G // 32], plain_scan_out):
+        raise AssertionError("sharded_scan_all_rows differs from the plain version")
+    log(f"mesh: {len(scans)} sharded scans bit-identical to the unsharded kernel "
+        f"(G = {G}) and to the plain version; padding chunks as expected")
+
+    # Times. The sharded call returns the joined bitmap on the host, so it
+    # is timed as a caller sees it (events around the call, host work and
+    # the copies included), beside the single-device engine's call (one
+    # upload of the probe arrays, the launch, its copy to the host) and the
+    # same wrapper given the unsharded tensor (one shard); the shard
+    # launches alone, one shard launch and one unsharded launch are device
+    # times (behind a spin kernel). Bounds are per card: the most any one
+    # card of the mesh must read and compute.
+    entries = {}
+    rep_case = {"sharded_probe_packed": "or_tree", "sharded_query_step": "token",
+                "sharded_probe_clauses": "or_tree"}
+    per_card = card_shards(sharded[0])
+    for name, query in rep_case.items():
+        case = next(c for c in cases if c["query"] == query and c["bank"] == 0)
+        call, unsharded, plain = mesh_probe_calls(pm, mesh, case)[name]
+        shards, own = sharded[0], banks[0][0]
+        r = torch.from_numpy(case["rows"]).to(dev)
+        s_ = torch.from_numpy(case["shifts"]).to(dev)
+        probes = {d: (r.to(d), s_.to(d)) for d in mesh.distinct_devices()}
+        stacked = np.stack([case["rows"], case["shifts"]]).astype(np.int32)
+
+        def single(i, unsharded=unsharded, stacked=stacked, own=own):
+            p = torch.from_numpy(stacked).to(own.device)
+            return unsharded(own, p[0], p[1]).cpu()
+
+        out_rows = {"sharded_probe_packed": case["T"], "sharded_query_step": 1,
+                    "sharded_probe_clauses": len(case["member_bits"])}[name]
+        card_cols = max(len(ix) for ix in per_card.values()) * shards[0].shape[1]
+        entries[name] = time_mesh_case(
+            f"{name} ({query}, T={case['T']}, {MESH_SHARDS} shards of {tuple(shards[0].shape)}, "
+            f"unsharded {tuple(own.shape)})",
+            {"ms": lambda i, call=call, shards=shards: call(shards),
+             "unsharded_call_ms": single,
+             "one_shard_call_ms": lambda i, call=call, own=own: call(own)},
+            lambda sh, unsharded=unsharded, probes=probes, r=r, s_=s_: unsharded(
+                sh, *probes.get(sh.device, (r, s_))),
+            shards, joined[0],
+            lambda i, plain=plain, case=case, r=r, s_=s_: plain(
+                pk.probe_plain(joined[0], r, s_, case["T"], case["K"])),
+            probe_bound(case["T"], card_cols, out_rows), reps)
+    args = needle_sets[0]
+    kw = dict(n_real=args["n_real"], max_words=args["max_words"])
+    real_lens = [int(v) for v in args["lens"][: args["n_real"]]]
+    w = stream[0].shape[0] // 32
+    scan_bounds = [
+        scan_bound(len(ix) * stream[0].shape[0], real_lens, popcounts(torch.cat(
+            [scans[0][:, i * w : (i + 1) * w] for i in ix], dim=1).to(dev)))
+        for ix in card_shards(stream).values()
+    ]
+    entries["sharded_scan_all_rows"] = time_mesh_case(
+        f"sharded_scan_all_rows (lens {real_lens}, {MESH_SHARDS} shards of "
+        f"{tuple(stream[0].shape)}, unsharded {tuple(matrix.shape)})",
+        {"ms": lambda i: pm.sharded_scan_all_rows(mesh, stream, args["needles"], args["lens"],
+                                                  **kw),
+         "unsharded_call_ms": lambda i: ks.byte_scan_stream(matrix, args["needles"],
+                                                            args["lens"], **kw).cpu(),
+         "one_shard_call_ms": lambda i: pm.sharded_scan_all_rows(None, matrix, args["needles"],
+                                                                 args["lens"], **kw)},
+        lambda sh: ks.byte_scan_stream(sh, args["needles"], args["lens"], **kw),
+        stream, matrix,
+        lambda i: plain_scan(ks, matrix, args["needles"], args["lens"], args["n_real"]),
+        max(scan_bounds), 5, plain_reps=1)
+    del sharded, joined, stream
+    torch.cuda.empty_cache()
+
+    # b. The main path: the serving engine over a mesh.
+    engine = engine_over_mesh(bt, pm, ks, mesh, n_cards, resident)
+    if n_cards >= 2:
+        graft_entry.dryrun_multichip(n_cards)
+        log(f"graft_entry.dryrun_multichip({n_cards}): ok")
+    else:
+        log("mesh: an engine over a mesh of distinct cards and dryrun_multichip need two or "
+            f"more cards; {n_cards} visible, so they were not run")
+
+    # c. The entry step on the card against its plain version.
+    fn, (bank2d, row_idx, shift) = graft_entry.entry()
+    got = fn(bank2d, row_idx, shift)
+    want = pk.pack_bitmap_plain(pk.probe_plain(bank2d, row_idx, shift, 4, row_idx.shape[0] // 4))
+    torch.cuda.synchronize()
+    if bank2d.device.type != "cuda" or not torch.equal(got, want):
+        raise AssertionError("graft_entry.entry() differs from probe_and_pack's plain version")
+    log(f"entry: probe_and_pack {tuple(got.shape)} on {bank2d.device} = plain version")
+
+    for name, entry in entries.items():
+        entry.update({"launches": engine["launches"][name], "max_abs_err": 0})
+    return entries, engine
+
+
+def card_shards(shards: tuple) -> dict:
+    """{device: the indices of the shards on it}."""
+    out: dict = {}
+    for i, sh in enumerate(shards):
+        out.setdefault(sh.device, []).append(i)
+    return out
+
+
+def time_mesh_case(label: str, calls: dict, kernel, shards, full, plain, bound,
+                   reps: int, plain_reps: int = 3) -> dict:
+    """Times of one K3 wrapper at one shape (phase 8), from CUDA events on
+    the first card: ``calls`` maps each caller's-time key to its call. The
+    shard launches alone are timed so only when every shard is on that card;
+    across cards, by the host clock between synchronizations of every
+    card."""
+    devices = list(card_shards(shards))
+    launches = lambda i: [kernel(sh) for sh in shards]
+    case = {key: event_ms(fn, reps, hide_host=False) for key, fn in calls.items()}
+    case.update({
+        "launches_ms": (event_ms(launches, reps, hide_host=True) if len(devices) == 1
+                        else wall_ms(launches, reps, devices)),
+        "shard_ms": event_ms(lambda i: kernel(shards[0]), reps, hide_host=True),
+        "unsharded_ms": event_ms(lambda i: kernel(full), reps, hide_host=True),
+        "plain_ms": event_ms(plain, plain_reps, hide_host=True),
+        "bound_ms": bound[0], "bound_by": bound[1],
+    })
+    log(f"mesh {label}: " + " ".join(
+        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}" for k, v in case.items()))
+    return case
+
+
+def wall_ms(fn, reps: int, devices) -> float:
+    """Median host-clock time of ``fn(i)`` between synchronizations of
+    every device in ``devices``."""
+    fn(0)
+    times = []
+    for i in range(reps):
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn(i)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int = 7) -> dict:
+    """Step b, K3's main path: phase 7's serving engine restarted from its
+    sidecar with its superbanks and row stream sharded, every shape ``reps``
+    times and 16 threads of mixed queries, each result against the
+    host-probe engine's rows. With two or more cards the engine runs with
+    ``mesh_devices=None``, its default, which shards over every card. On one
+    card ``mesh_devices=4`` resolves to ``mesh``, four shards on the card:
+    the engine never builds a mesh with a repeated device itself, so the two
+    modules that resolve ``mesh_devices`` are handed ``mesh`` while the
+    engine is built. The K3 and scan counters are set to 0 just before the
+    queries and read just after."""
+    from unittest import mock
+
+    import bloomsearch_tpu_torch.bloom.bank as bank_mod
+    import bloomsearch_tpu_torch.rowcache as rc_mod
+
+    store = resident["store"]
+    config = engine_config(**{**resident["serving"],
+                              "mesh_devices": None if n_cards >= 2 else mesh.size})
+    if n_cards >= 2:
+        engine = bt.BloomSearchEngine(config, store, store)
+    else:
+        def resolve(mesh_devices, device):
+            return mesh
+
+        with mock.patch.object(bank_mod, "mesh_for", resolve), \
+                mock.patch.object(rc_mod, "mesh_for", resolve):
+            engine = bt.BloomSearchEngine(config, store, store)
+    used = engine._device_backend.mesh
+    out: dict = {"shards": used.size, "cards": len(used.distinct_devices()),
+                 "mesh_devices": config.mesh_devices}
+    engine.start()
+    try:
+        engine._row_cache.needle_cache_enabled = False
+        t0 = time.perf_counter()
+        engine.warmup(block=True)
+        out["warmup_s"] = time.perf_counter() - t0
+        stats = engine.stats()
+        hits = stats["serving_cache"]["hits"]
+        if stats["row_cache"]["pinned_blocks"] != resident["n_blocks"] or hits != resident["n_blocks"]:
+            raise AssertionError(f"mesh engine: {stats['row_cache']['pinned_blocks']} blocks "
+                                 f"pinned, {hits} sidecar hits, want {resident['n_blocks']}")
+        for sb in engine._device_backend._superbanks.values():
+            if tuple(s.device for s in sb.bank2d) != used.devices:
+                raise AssertionError("a superbank is not sharded over the mesh")
+        rc = engine._row_cache
+        if rc.mesh != used or tuple(s.device for s in rc._bucket.matrix) != used.devices:
+            raise AssertionError("the row stream is not sharded over the mesh")
+        log(f"mesh engine ({used.size} shards on {out['cards']} card(s), mesh_devices="
+            f"{config.mesh_devices}): warmup {out['warmup_s']:.3f} s from the sidecar "
+            f"({hits} hits); superbanks and stream sharded")
+
+        shapes, results = resident["shapes"], resident["results"]
+        pm.reset_launch_counts()
+        ks.reset_launch_counts()
+        for name, query in shapes.items():
+            times = []
+            for _ in range(reps):
+                ms, rows = timed(engine, query)
+                if rowset(rows) != results[name]:
+                    raise AssertionError(f"mesh engine: {name} rows differ from the host probe")
+                times.append(ms)
+            out[f"warm_p50_ms_{name}"] = statistics.median(times)
+            log(f"mesh engine query {name}: {len(rows)} rows = host probe; warm p50 "
+                f"{out[f'warm_p50_ms_{name}']:.3f} ms over {reps}")
+        run_concurrent(engine, shapes, results, out)
+        out["launches"] = pm.launch_counts()
+        scans = ks.launch_counts()
+    finally:
+        engine.stop(timeout=600)
+    if scans["segments"]:
+        raise AssertionError(f"a segment scan on a mesh: {scans}")
+    log(f"mesh engine: sharded launches on the main path {out['launches']}; shard scan "
+        f"launches {scans}")
+    return out
+
+
+def probe_phases(dev, args, cases: dict, done) -> list[dict]:
+    """Phases 5 and 6: the probe engine and the main-path shapes -> the
+    K1 epilogues' entries of the kernels line."""
+    engine = phase_engine(dev, args.target_mb, args.seed)
+    done("engine")
+    launched = engine.pop("launch_shapes")
+    log(json.dumps({"engine": engine}))
+    log("main-path launches per (epilogue, C, T, output rows, clauses): "
+        + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
+    main_cases = phase_main_shapes(dev, launched, cases)
+    done("main-path shapes")
+    kernels = []
+    for name, (counter, replaces) in EPILOGUES.items():
+        if counter not in main_cases:
+            raise AssertionError(f"{name} was not launched on the main path")
+        case = main_cases[counter]
+        log(f"{name}: main-path shape {case['key']} reported")
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+            "launches": engine["launches"][counter], "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
+        })
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -911,30 +1343,20 @@ def main(argv=None) -> int:
         if dataset.poll() is None:
             dataset.kill()
             dataset.wait()
-    engine = phase_engine(dev, args.target_mb, args.seed)
-    done("engine")
-    launched = engine.pop("launch_shapes")
-    log(json.dumps({"engine": engine}))
-    log("main-path launches per (epilogue, C, T, output rows, clauses): "
-        + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
-    main_cases = phase_main_shapes(dev, launched, cases)
-    done("main-path shapes")
-    kernels = []
-    for name, (counter, replaces) in EPILOGUES.items():
-        if counter not in main_cases:
-            raise AssertionError(f"{name} was not launched on the main path")
-        case = main_cases[counter]
-        log(f"{name}: main-path shape {case['key']} reported")
-        kernels.append({
-            "name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
-            "launches": engine["launches"][counter], "max_abs_err": case["max_abs_err"],
-            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": None,
-        })
-    serving = phase_serving(dev, args.target_mb, args.seed)
-    done("serving engine")
-    scan_cases = serving.pop("scan_cases")
-    log(json.dumps({"serving": serving}))
+    kernels = probe_phases(dev, args, cases, done)
+    sidecar = tempfile.mkdtemp(prefix="bloomsearch-sidecar-")
+    try:
+        serving = phase_serving(dev, args.target_mb, args.seed, sidecar)
+        done("serving engine")
+        scan_cases = serving.pop("scan_cases")
+        resident = serving.pop("resident")
+        log(json.dumps({"serving": serving}))
+        mesh_entries, mesh_engine = phase_mesh(dev, resident)
+        del resident
+        done("mesh")
+        log(json.dumps({"mesh_engine": mesh_engine}))
+    finally:
+        shutil.rmtree(sidecar, ignore_errors=True)
     for name, (counter, replaces) in SCAN_MODES.items():
         if counter not in scan_cases:
             raise AssertionError(f"{name} was not launched on the serving path")
@@ -945,6 +1367,16 @@ def main(argv=None) -> int:
             "launches": serving["launches"][counter], "max_abs_err": case["max_abs_err"],
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
+        })
+    for name, (source, replaces) in MESH_WRAPPERS.items():
+        case = mesh_entries[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": case["launches"], "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None, "shards": MESH_SHARDS,
+            **{k: case[k] for k in ("launches_ms", "shard_ms", "unsharded_ms",
+                                    "unsharded_call_ms", "one_shard_call_ms")},
         })
     for k in kernels:
         if k["launches"] < 1:

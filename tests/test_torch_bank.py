@@ -288,8 +288,15 @@ class TestResidency:
 
 
 def test_cuda_without_card_raises_and_mesh_is_a_later_slice():
+    """No card: "cuda" raises, with or without a mesh. The mesh slice has
+    landed: mesh_devices=2 on the CPU shards the bank over two CPU shards."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tbank.DeviceProbeBackend(device="cuda")
-    with pytest.raises(NotImplementedError):
-        tbank.DeviceProbeBackend(device="cpu", mesh_devices=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tbank.DeviceProbeBackend(device="cuda", mesh_devices=2)
+    backend = tbank.DeviceProbeBackend(device="cpu", mesh_devices=2)
+    assert backend.mesh.size == 2 and backend.stats()["mesh_devices"] == 2
+    backend.probe_groups([(b"A", 0, MK, lambda: tagged("a", 3))], make_terms(("token", "x"))[1])
+    sb = backend._superbanks[MK]
+    assert sb.capacity == 256 and [s.shape[1] for s in sb.bank2d] == [128, 128]

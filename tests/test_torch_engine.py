@@ -458,7 +458,7 @@ def test_device_failure_of_a_background_pin_reaches_the_next_query(tmp_path, mon
     write_store(bt, tmp_path / "port")
     engine = open_engine(bt, tmp_path / "port", row_cache_bytes=8 << 20)
     try:
-        monkeypatch.setattr(rc, "_update_rows", _failing)
+        monkeypatch.setattr(rc, "sharded_update_rows", _failing)
         query = QUERIES["token"](bt)
         engine.query_sync(query, timeout=TIMEOUT)  # cold: pins in the background
         engine.drain_background_pins(timeout=TIMEOUT)

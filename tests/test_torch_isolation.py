@@ -87,6 +87,41 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_scale_out_modules_are_held_to_the_same_rule():
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for module in ("parallel/mesh.py", "parallel/distributed.py", "parallel/remote.py",
+                   "parallel/discovery.py", "objectstore.py", "s3.py", "coordination.py",
+                   "serve.py", "graft_entry.py"):
+        assert module in names, module
+
+
+def test_default_mesh_on_cuda_raises_without_a_card():
+    from bloomsearch_tpu_torch.parallel import default_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    for n in (None, 1, 4):
+        with pytest.raises(RuntimeError, match="device\\(s\\) visible"):
+            default_mesh(n, "cuda")
+
+
+def test_serve_without_a_card_exits_non_zero(tmp_path):
+    """``serve`` defaults to --device cuda and, with no card, fails as the
+    engine does instead of serving from the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    result = subprocess.run(
+        [sys.executable, "-m", "bloomsearch_tpu_torch.serve", "--dir", str(tmp_path),
+         "--probe-backend", "device"],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=env,
+    )
+    assert result.returncode != 0
+    assert "no CUDA device" in result.stderr
+    assert "serving queries on" not in result.stdout
+
+
 def test_default_cuda_device_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is usable")
@@ -99,10 +134,16 @@ def test_default_cuda_device_raises_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("overrides", [{"mesh_devices": 2}])
 def test_later_slices_raise_not_implemented(tmp_path, overrides):
+    """The mesh slice has landed: mesh_devices=2 on the CPU builds a
+    2-shard probe backend and a 2-shard row cache instead of refusing."""
     store = bt.FileSystemDataStore(str(tmp_path))
-    config = bt.BloomSearchEngineConfig(device="cpu", **overrides)
-    with pytest.raises(NotImplementedError):
-        bt.BloomSearchEngine(config, store, store)
+    config = bt.BloomSearchEngineConfig(device="cpu", row_cache_bytes=1 << 20, **overrides)
+    engine = bt.BloomSearchEngine(config, store, store)
+    assert engine._device_backend.mesh.size == 2
+    assert engine._row_cache.mesh.size == 2 and engine._row_cache._chunk_unit == 1024
+    assert engine._device_backend.mesh.devices == (torch.device("cpu"),) * 2
+    stats = engine.stats()
+    assert stats["device"]["mesh_devices"] == stats["row_cache"]["mesh_devices"] == 2
 
 
 @pytest.mark.parametrize("sidecar", [False, True])
@@ -129,8 +170,9 @@ def test_row_cache_on_cuda_raises_without_a_card():
         pytest.skip("a card is visible: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceRowCache(1 << 20)
-    with pytest.raises(NotImplementedError):
-        DeviceRowCache(1 << 20, mesh_devices=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceRowCache(1 << 20, mesh_devices=2)
+    assert DeviceRowCache(1 << 20, mesh_devices=2, device="cpu").mesh.size == 2
 
 
 def test_host_probe_backend_needs_no_device(tmp_path):

@@ -1,0 +1,350 @@
+"""The port's mesh (K3) against the JAX package's, bit for bit.
+
+The JAX side runs ``parallel/mesh.py`` over 2 and 4 of the conftest's
+virtual CPU devices with the Pallas kernels in interpret mode; the port runs
+its sharded wrappers over a 2- and 4-shard CPU mesh (the kernels' plain
+versions). Both get the same numpy banks, probe arrays, clause masks,
+stream chunks and needles. Tolerance: none — packed words, survivor totals,
+logical contents, capacities and placements must be equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import bloomsearch_tpu as bs  # noqa: E402
+import bloomsearch_tpu.rowcache as rc_ref  # noqa: E402
+from bloomsearch_tpu.bloom import BloomParams  # noqa: E402
+from bloomsearch_tpu.bloom import bank as jbank  # noqa: E402
+from bloomsearch_tpu.bloom.probe import compile_bloom_terms, stack_filter_bank  # noqa: E402
+from bloomsearch_tpu.file_format import BloomFilters  # noqa: E402
+from bloomsearch_tpu.parallel import mesh as jm  # noqa: E402
+from bloomsearch_tpu_torch.bloom import bank as tbank  # noqa: E402
+from bloomsearch_tpu_torch.kernels import probe as pk  # noqa: E402
+from bloomsearch_tpu_torch.kernels import scan as ks  # noqa: E402
+from bloomsearch_tpu_torch.parallel import mesh as pm  # noqa: E402
+from bloomsearch_tpu_torch.rowcache import rowcache_from_reference  # noqa: E402
+
+from test_torch_rowcache import block_of  # noqa: E402
+
+PARAMS = BloomParams(1000, 0.01)
+MK = (PARAMS.m_bits, PARAMS.k, "classic")
+T, K = 4, 7
+
+
+def words(x) -> np.ndarray:
+    """A packed result (JAX array or torch tensor) as uint32 words."""
+    if isinstance(x, torch.Tensor):
+        x = x.numpy()
+    return np.ascontiguousarray(np.asarray(x)).view(np.uint32)
+
+
+def logical(x, axis: int) -> np.ndarray:
+    """The port's sharded array joined in shard order, as numpy."""
+    return torch.cat(list(x), dim=axis).numpy()
+
+
+def meshes(n):
+    return jm.default_mesh(n), pm.default_mesh(n, "cpu")
+
+
+def random_probe_case(seed: int, n: int):
+    """A bank with random words (bit 31 included) over 128·n + 37 logical
+    columns (so the mesh pads), and T·K probes with shift 31 among them."""
+    rng = np.random.default_rng(seed)
+    rows = 3 * PARAMS.num_words
+    bank = rng.integers(0, 2**32, size=(rows, 128 * n + 37), dtype=np.uint32)
+    # Dense columns so multi-probe terms still match somewhere.
+    bank[:, ::5] = 0xFFFFFFFF
+    row_idx = rng.integers(0, rows, size=T * K).astype(np.int32)
+    shift = rng.integers(0, 32, size=T * K).astype(np.int32)
+    shift[0] = 31
+    return bank, row_idx, shift
+
+
+class TestMesh:
+    def test_default_mesh_and_padding(self):
+        assert pm.default_mesh(None, "cpu").size == 1
+        mesh = pm.default_mesh(4, "cpu")
+        assert mesh.shape == {pm.BLOCK_AXIS: 4} == dict(jm.default_mesh(4).shape)
+        for c in (1, 127, 512, 513, 1000):
+            assert pm.pad_columns_for_mesh(c, mesh) == jm.pad_columns_for_mesh(c, jm.default_mesh(4))
+        packed = np.random.default_rng(0).integers(0, 2**32, size=(3, 5), dtype=np.uint32)
+        np.testing.assert_array_equal(pm.unpack_bitmap(packed, 150), jm.unpack_bitmap(packed, 150))
+
+    def test_no_card_cuda_mesh_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a card is visible")
+        with pytest.raises(RuntimeError, match="mesh_devices=2 but only 0"):
+            pm.default_mesh(2, "cuda")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("epilogue", ["pack", "query_step", "clauses"])
+def test_probe_wrappers_match_reference(n, epilogue):
+    jmesh, tmesh = meshes(n)
+    bank, row_idx, shift = random_probe_case(n, n)
+    jbank2d = jm.shard_bank(jmesh, bank)
+    tbank2d = pm.shard_bank(tmesh, bank)
+    assert [s.shape for s in tbank2d] == [(bank.shape[0], 256)] * n
+    common = dict(use_pallas=True, interpret=True)
+    r, s = jnp.asarray(row_idx), jnp.asarray(shift)
+    if epilogue == "pack":
+        want = jm.sharded_probe_packed(jmesh, jbank2d, r, s, T, K, **common)
+        got = pm.sharded_probe_packed(tmesh, tbank2d, row_idx, shift, T, K)
+    elif epilogue == "query_step":
+        mask = np.array([True, False, True, True])
+        want, want_total = jm.sharded_query_step(
+            jmesh, jbank2d, r, s, jnp.asarray(mask), T, K, **common
+        )
+        and_bits = int(sum(1 << t for t in range(T) if mask[t]))
+        got, total = pm.sharded_query_step(tmesh, tbank2d, row_idx, shift, and_bits, T, K)
+        assert total == int(want_total)
+        assert total == int(np.unpackbits(words(got).view(np.uint8)).sum())
+    else:
+        rng = np.random.default_rng(n + 10)
+        clause = (rng.random((5, T)) < 0.5).astype(np.float32)
+        clause[:, 0] = 1.0
+        member = np.array([[1, 1, 0, 0, 0], [0, 0, 1, 1, 1], [1, 0, 0, 0, 1]], np.float32)
+        want = jm.sharded_probe_clauses(
+            jmesh, jbank2d, r, s, jnp.asarray(clause), jnp.asarray(member), T, K, **common
+        )
+        clause_bits = [int(sum(1 << t for t in range(T) if row[t])) for row in clause]
+        member_bits = [int(sum(1 << i for i in range(5) if row[i])) for row in member]
+        got = pm.sharded_probe_clauses(
+            tmesh, tbank2d, row_idx, shift, clause_bits, member_bits, T, K
+        )
+    np.testing.assert_array_equal(words(got), words(want))
+    assert words(got).any() and not words(got).all()
+    # The joined bitmap is the unsharded kernel's on the logical bank.
+    flat = torch.from_numpy(np.ascontiguousarray(
+        np.pad(bank, ((0, 0), (0, 256 * n - bank.shape[1])))).view(np.int32))
+    rt, st = torch.from_numpy(row_idx), torch.from_numpy(shift)
+    if epilogue == "pack":
+        unsharded = pk.probe_and_pack(flat, rt, st, T, K)
+    elif epilogue == "query_step":
+        unsharded = pk.probe_reduce_and_pack(flat, rt, st, T, K, and_bits)[0]
+    else:
+        unsharded = pk.probe_clauses_pack(flat, rt, st, T, K, clause_bits, member_bits)
+    np.testing.assert_array_equal(words(got), words(unsharded))
+
+
+def planted_chunks(G: int, needles, seed: int) -> np.ndarray:
+    """Random chunks (bytes >= 0x80 included) with needle r planted on both
+    sides of every 512-chunk shard boundary: at start 479 of chunk
+    boundary-1-r (a hit), at start r of chunk boundary+r and at start 480
+    of chunk boundary+8+r (that byte belongs to the next chunk's payload)."""
+    rng = np.random.default_rng(seed)
+    chunks = rng.integers(0, 256, size=(G, ks.CHUNK_BYTES), dtype=np.uint8)
+    for r, nd in enumerate(needles):
+        arr = np.frombuffer(nd, np.uint8)
+        for boundary in range(512, G, 512):
+            for g, start in ((boundary - 1 - r, 479), (boundary + r, r), (boundary + 8 + r, 480)):
+                chunks[g, start : start + len(arr)] = arr
+    return chunks
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_scan_wrapper_matches_reference(n):
+    jmesh, tmesh = meshes(n)
+    G = 512 * n
+    needles = [b"\xc3\xa9t\xe9", b"needle", bytes(range(0x61, 0x61 + 31)), b"\xff" * 32]
+    chunks = planted_chunks(G, needles, n)
+    padded = np.zeros((8, ks.MAX_SCAN_WINDOW), np.int32)
+    lens = np.zeros(8, np.int32)
+    for r, nd in enumerate(needles):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    rows32 = chunks.view(np.int32)
+    jrows = jax.device_put(jnp.asarray(rows32), jm.rows_sharding(jmesh))
+    want = jm.sharded_scan_all_rows(
+        jmesh, jrows, jnp.asarray(padded), jnp.asarray(lens), n_real=6, max_words=9,
+        stream_stride=ks.STREAM_STRIDE, interpret=True,
+    )
+    trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
+    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=6, max_words=9)
+    np.testing.assert_array_equal(words(got), words(want))
+    unsharded = ks.byte_scan_stream(
+        torch.from_numpy(rows32.copy()), padded, lens, n_real=6, max_words=9
+    )
+    np.testing.assert_array_equal(words(got), words(unsharded))
+    bits = pm.unpack_bitmap(words(got), G)
+    for r in range(4):
+        for boundary in range(512, G, 512):
+            assert bits[r, boundary - 1 - r] and bits[r, boundary + r], (r, boundary)
+    assert bits[4:].all()  # padding rows (length 0) match every chunk
+
+
+@pytest.mark.parametrize("axis", ["columns", "rows"])
+def test_helpers_match_reference_across_shard_boundaries(axis):
+    """Zeros, a straddling update, growth (columns move to other shards)
+    and a compaction whose runs cross shards, on a 4-way mesh."""
+    jmesh, tmesh = meshes(4)
+    rng = np.random.default_rng(7)
+    if axis == "columns":
+        other, size, grown = 6, 512, 1024
+        chunk = rng.integers(0, 2**31, size=(other, 100), dtype=np.int64).astype(np.uint32)
+        jz = jm.sharded_zeros(jmesh, other, size)
+        tz = pm.sharded_zeros(tmesh, other, size)
+        np.testing.assert_array_equal(words(logical(tz, 1)), words(jz))
+        ju = jm.sharded_update_columns(jmesh, jz, jnp.asarray(chunk), jnp.int32(90))
+        tu = pm.sharded_update_columns(tmesh, tz, chunk.view(np.int32), 90)
+        jp = jm.sharded_pad_columns(jmesh, ju, grown)
+        tp = pm.sharded_pad_columns(tmesh, tu, grown)
+        idx = np.r_[np.arange(95, 140), np.arange(180, 190), np.arange(2, 4)]
+        jt = jm.sharded_take_columns(jmesh, jp, jnp.asarray(idx.astype(np.int32)), 512)
+        tt = pm.sharded_take_columns(tmesh, tp, idx, 512)
+        dim = 1
+    else:
+        other, size, grown = 128, 2048, 4096
+        chunk = rng.integers(-(2**31), 2**31, size=(100, other), dtype=np.int64).astype(np.int32)
+        jz = jm.sharded_zeros_rows(jmesh, size, other, dtype=jnp.int32)
+        tz = pm.sharded_zeros_rows(tmesh, size, other)
+        np.testing.assert_array_equal(words(logical(tz, 0)), words(jz))
+        ju = jm.sharded_update_rows(jmesh, jz, jnp.asarray(chunk), jnp.int32(470))
+        tu = pm.sharded_update_rows(tmesh, tz, chunk, 470)
+        jp = jm.sharded_pad_rows(jmesh, ju, grown)
+        tp = pm.sharded_pad_rows(tmesh, tu, grown)
+        idx = np.r_[np.arange(480, 540), np.arange(560, 570), np.arange(0, 3)]
+        jt = jm.sharded_take_rows(jmesh, jp, jnp.asarray(idx.astype(np.int32)), 2048)
+        tt = pm.sharded_take_rows(tmesh, tp, idx, 2048)
+        dim = 0
+    for j, t, n in ((ju, tu, size), (jp, tp, grown), (jt, tt, size)):
+        assert len(t) == 4 and all(s.shape[dim] == n // 4 for s in t)
+        np.testing.assert_array_equal(words(logical(t, dim)), words(j))
+    assert tu is tz  # the update writes in place (slack only, by the callers)
+    assert all(a is not b for a, b in zip(tp, tu))  # growth: new shards
+
+
+def make_bank(per_block_keys):
+    triples = []
+    for field_keys, token_keys, ft_keys in per_block_keys:
+        t = BloomFilters.from_params(PARAMS)
+        t.field.add_keys(field_keys)
+        t.token.add_keys(token_keys)
+        t.field_token.add_keys(ft_keys)
+        triples.append(t)
+    return stack_filter_bank(triples)
+
+
+def tagged(tag, n):
+    return make_bank([([f"{tag}{i}"], [f"t{tag}{i}", "shared"], []) for i in range(n)])
+
+
+def assert_same_superbank(ref, port, n):
+    assert port.segments == ref.segments
+    assert (port.capacity, port.used, port.dead) == (ref.capacity, ref.used, ref.dead)
+    assert [s.shape[1] for s in port.bank2d] == [port.capacity // n] * n
+    np.testing.assert_array_equal(
+        words(logical(port.bank2d, 1)), np.asarray(ref.bank2d)[: port.num_rows]
+    )
+
+
+def test_superbank_on_a_mesh_matches_reference():
+    """Capacities, placements and contents equal the JAX mesh's through
+    straddling inserts, growth and compaction."""
+    jmesh, tmesh = meshes(4)
+    ref = jbank.Superbank(PARAMS.m_bits, PARAMS.k, "classic", jnp, jax, mesh=jmesh)
+    port = tbank.Superbank(PARAMS.m_bits, PARAMS.k, "classic", "cpu", mesh=tmesh)
+    steps = [("insert", b"a", tagged("a", 100)), ("insert", b"b", tagged("b", 130)),
+             ("insert", b"c", tagged("c", 300)), ("remove", b"b", None),
+             ("insert", b"d", tagged("d", 500)), ("remove", b"a", None),
+             ("remove", b"c", None), ("compact", None, None), ("insert", b"e", tagged("e", 5))]
+    for op, key, bank in steps:
+        if op == "insert":
+            assert port.insert(key, bank) == ref.insert(key, bank)
+        elif op == "remove":
+            port.remove(key)
+            ref.remove(key)
+        else:
+            port.maybe_compact()
+            ref.maybe_compact()
+        assert_same_superbank(ref, port, 4)
+    assert port.mesh.size == 4 and ref.capacity == port.capacity == 512
+
+
+def probe_arrays(*tokens):
+    q = bs.new_query()
+    for t in tokens:
+        q.token(t)
+    terms = compile_bloom_terms(q.build().bloom)
+    word_idx, bit_idx = terms.positions_for(PARAMS.m_bits, PARAMS.k)
+    rows = (terms.ks_idx[:, None].astype(np.int32) * PARAMS.num_words + word_idx).reshape(-1)
+    return terms, rows, bit_idx.reshape(-1).astype(np.int32)
+
+
+def test_superbank_from_a_mesh_reference_probes_the_same():
+    jmesh, _ = meshes(4)
+    ref = jbank.Superbank(PARAMS.m_bits, PARAMS.k, "classic", jnp, jax, mesh=jmesh)
+    for key, tag, n in ((b"x", "x", 140), (b"y", "y", 7), (b"z", "z", 300)):
+        ref.insert(key, tagged(tag, n))
+    ref.remove(b"y")
+    port = tbank.superbank_from_reference(
+        ref.bank2d, ref.segments, ref.m_bits, ref.k, ref.layout, "cpu"
+    )
+    assert port.mesh is not None and port.mesh.size == 4
+    assert_same_superbank(ref, port, 4)
+    terms, rows, shifts = probe_arrays("tz1", "shared")
+    jback = jbank.DeviceProbeBackend(mesh_devices=4)
+    tback = tbank.DeviceProbeBackend(device="cpu", mesh_devices=4)
+    for reduce_and in (False, True):
+        want = jback._probe_superbank_batched(
+            ref.bank2d, ref.capacity, ref.k, rows, shifts, len(terms), reduce_and
+        )
+        got = tback._probe_superbank_batched(
+            port.bank2d, port.capacity, port.k, rows, shifts, len(terms), reduce_and
+        )
+        np.testing.assert_array_equal(got, want)
+    start, n = ref.segments[b"z"]
+    assert got[0, start : start + n].tolist() == [False, True] + [False] * (n - 2)
+
+
+def test_backend_on_a_mesh_matches_reference_and_warms_every_shard(monkeypatch):
+    jback = jbank.DeviceProbeBackend(mesh_devices=4)
+    tback = tbank.DeviceProbeBackend(device="cpu", mesh_devices=4)
+    banks = {b"F1": tagged("p", 200), b"F2": tagged("q", 90)}
+    requests = [(p, 0, MK, (lambda b=b: b)) for p, b in banks.items()]
+    terms, _, _ = probe_arrays("tp150", "shared")
+    for reduce_and in (False, True):
+        want = jback.probe_groups(requests, terms, reduce_and=reduce_and)
+        got = tback.probe_groups(requests, terms, reduce_and=reduce_and)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+    assert tback.stats()["mesh_devices"] == jback.stats()["mesh_devices"] == 4
+    assert tback.stats()["superbanks"].keys() == jback.stats()["superbanks"].keys()
+    for name, entry in tback.stats()["superbanks"].items():
+        assert entry["capacity"] == jback.stats()["superbanks"][name]["capacity"] == 512
+    seen = []
+    for name in ("probe_and_pack", "probe_reduce_and_pack", "probe_clauses_pack"):
+        orig = getattr(pm, name)
+        monkeypatch.setattr(
+            pm, name, lambda bank, *a, _o=orig, _n=name: seen.append((_n, bank.shape)) or _o(bank, *a)
+        )
+    assert tback.precompile_probe_programs() == 3
+    assert len(seen) == 3 * 4 and {s for _, s in seen} == {(3 * PARAMS.num_words, 128)}
+
+
+def test_rowcache_from_a_mesh_reference_scans_the_same():
+    ref = rc_ref.DeviceRowCache(64 << 20, mesh_devices=4)
+    blocks = {}
+    for b in range(3):
+        data, offsets, lengths = block_of(
+            [{"m": f"row {b}-{i} " + "pad" * (i % 40)} for i in range(300)]
+        )
+        blocks[(b"f", b)] = ref.pin((b"f", b), data, offsets, lengths)
+    port = rowcache_from_reference(ref, "cpu")
+    assert port.mesh is not None and port.mesh.size == 4
+    assert port._bucket.cap == ref._bucket.cap and port._bucket.cap % 2048 == 0
+    assert [s.shape[0] for s in port._bucket.matrix] == [port._bucket.cap // 4] * 4
+    np.testing.assert_array_equal(logical(port._bucket.matrix, 0), np.asarray(ref._bucket.matrix))
+    needles = [b"row 1-7 ", b"pad", b"absent"]
+    want = ref.scan_many(list(blocks.values()), needles)
+    got = port.scan_many([port.get(k) for k in blocks], needles)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    assert port.stats()["scan_launches"] == 1

@@ -209,11 +209,17 @@ class TestDeviceRowCache:
         assert m.shape == (cache._bucket.cap, CHUNK_BYTES // 4)
 
     def test_cuda_without_a_card_raises_and_mesh_is_not_ported(self):
+        """No card: "cuda" raises. The mesh is ported now: mesh_devices=2 on
+        the CPU shards the stream's chunk axis over two CPU shards."""
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 DeviceRowCache(1 << 20)
-        with pytest.raises(NotImplementedError):
-            DeviceRowCache(1 << 20, mesh_devices=2, device="cpu")
+        data, offsets, lengths = block_of([{"k": "device"}])
+        cache = DeviceRowCache(1 << 20, mesh_devices=2, device="cpu")
+        cache.pin((b"f", 0), data, offsets, lengths)
+        shards = cache._bucket.matrix
+        assert cache._bucket.cap == 1024
+        assert [s.shape for s in shards] == [(512, CHUNK_BYTES // 4)] * 2
 
 
 class TestNativePackParity:
@@ -362,14 +368,14 @@ class TestStreamBucket:
         warm_block = cache.pin((b"warm", 0), data, offs, lens)
         upload_started = threading.Event()
         release_upload = threading.Event()
-        orig = rc._update_rows
+        orig = rc.sharded_update_rows
 
         def slow_update(*a, **k):
             upload_started.set()
             assert release_upload.wait(timeout=10), "test deadlock"
             return orig(*a, **k)
 
-        monkeypatch.setattr(rc, "_update_rows", slow_update)
+        monkeypatch.setattr(rc, "sharded_update_rows", slow_update)
         data2, offs2, lens2 = block_of([{"m": f"cold tok2_{i}"} for i in range(30)])
         pin_done = threading.Event()
 
