@@ -1,4 +1,5 @@
-// Block-bloom probe (K1) for Hopper, with its three fused epilogues.
+// Block-bloom probe (K1) for Hopper, with its three fused epilogues, and its
+// access-pattern floor (K1f, probe_floor_kernel below).
 //
 // Replaces bloomsearch_tpu/bloom/pallas_kernels.py::probe_bank_pallas_tk
 // (the Pallas probe) together with the XLA epilogues around it:
@@ -104,6 +105,49 @@ __global__ void __launch_bounds__(THREADS) probe_kernel(
   }
 }
 
+// K1f, the access-pattern floor of probe_kernel. Replaces the Pallas floor
+// kernel of scripts/exp_kernel_floor.py (make_dma_kernel, pallas_call :165),
+// which had K1's grid and block specs and a body of one OR. This kernel has
+// K1's launch shape: the same THREADS, one thread per column, the same
+// shared-memory staging of the probe arrays (the shifts are staged and never
+// read, as the TPU floor kernel prefetched them and never read them), the
+// same unrolled loop of __ldg loads with the same row check. Its body keeps
+// only an OR of the loaded words per term:
+//   out[t, c] = OR over j < K of bank[row_idx[t*K + j] & ~7, c]
+// (row 0 of each probe's aligned 8-row group, what the TPU kernel ORed; on
+// Hopper the mask does not change the bytes read, one coalesced row segment a
+// probe). Written as int32[T, C]. What bounds it: the same T*K*C*4 bank
+// bytes as K1 plus the unpacked output; time over K1's time says how much of
+// K1 is its loads and how much its bit math.
+__global__ void __launch_bounds__(THREADS) probe_floor_kernel(
+    const int32_t* __restrict__ bank, int64_t R, int64_t C,
+    const int32_t* __restrict__ row_idx, const int32_t* __restrict__ shift,
+    int T, int K, int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_row = smem;
+  int32_t* s_shift = smem + T * K;
+  const int P = T * K;
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    s_row[p] = row_idx[p];
+    s_shift[p] = shift[p] & 31;
+  }
+  __syncthreads();
+
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+
+  for (int t = 0; t < T; ++t) {
+    uint32_t acc = 0;
+#pragma unroll 4
+    for (int j = 0; j < K; ++j) {
+      const int64_t r = s_row[t * K + j];
+      // A row past the bank reads nothing, as in probe_kernel.
+      acc |= (r >= 0 && r < R) ? (uint32_t)__ldg(bank + (r & ~(int64_t)7) * C + c) : 0u;
+    }
+    out[t * C + c] = (int32_t)acc;
+  }
+}
+
 // Plain C entry point, bound with ctypes. clause_bits and member_bits are
 // HOST arrays (they travel by value in the kernel's parameters). Launches on
 // `stream` and returns cudaGetLastError(): 0 when the launch was accepted.
@@ -128,5 +172,20 @@ extern "C" int bs_probe_launch(const int32_t* bank, int64_t R, int64_t C,
   if (blocks > 0)
     probe_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         bank, R, C, row_idx, shift, T, K, mode, ep, out);
+  return (int)cudaGetLastError();
+}
+
+// K1f's entry point: out is int32[T, C]. Same checks and launch as above.
+extern "C" int bs_probe_floor_launch(const int32_t* bank, int64_t R, int64_t C,
+                                     const int32_t* row_idx, const int32_t* shift,
+                                     int T, int K, int32_t* out, void* stream) {
+  if (T < 1 || T > MAX_TERMS || K < 1 || C % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * T * K * sizeof(int32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((C + THREADS - 1) / THREADS);
+  if (blocks > 0)
+    probe_floor_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+        bank, R, C, row_idx, shift, T, K, out);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,7 @@ def build_library(source: str, library: str, force: bool = False) -> str:
         and os.path.getmtime(library) >= os.path.getmtime(source)
     ):
         return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(library), exist_ok=True)
     tmp = f"{library}.build.{os.getpid()}.{threading.get_ident()}"
     try:
         result = subprocess.run(

@@ -18,6 +18,12 @@ Outputs are packed ``int32[rows, C/32]`` words: bit i of word w is column
 host). Clause and member masks are bit masks: bit t of ``clause_bits[i]``
 puts term t in clause i, bit i of ``member_bits[m]`` puts clause i in
 member m.
+
+``probe_floor`` (K1f) is the probe's access-pattern floor: the same launch
+shape and loads with an OR in place of the bit math, written unpacked as
+``int32[T, C]``. It replaces the Pallas floor kernel of
+``scripts/exp_kernel_floor.py`` and is timed beside K1 by
+``tools/exp_kernel_floor.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -44,13 +50,16 @@ _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _count_lock = threading.Lock()
-_launches = {"pack": 0, "reduce_and": 0, "clauses": 0}
-# (epilogue, C, T, output rows, clauses) -> kernel launches
+_launches = {"pack": 0, "reduce_and": 0, "clauses": 0, "floor": 0}
+# (epilogue or "floor", C, T, output rows, clauses) -> kernel launches
 _shapes: dict[tuple[str, int, int, int, int], int] = {}
+# The launches noted by the capture in progress (``CapturedLaunches``), if any.
+_capture: Optional[dict[tuple[str, int, int, int, int], int]] = None
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per epilogue since the last reset."""
+    """Kernel launches per epilogue (and of the floor kernel) since the last
+    reset."""
     with _count_lock:
         return dict(_launches)
 
@@ -69,11 +78,50 @@ def reset_launch_counts() -> None:
         _shapes.clear()
 
 
+def _add(key: tuple[str, int, int, int, int], n: int) -> None:
+    _launches[key[0]] += n
+    _shapes[key] = _shapes.get(key, 0) + n
+
+
 def _count(name: str, C: int, T: int, rows: int, clauses: int = 0) -> None:
+    """One launch, counted where it runs. A launch into a stream that is
+    being captured runs nothing: it is noted in the ``CapturedLaunches``
+    that captures it, whose replays count it."""
+    key = (name, C, T, rows, clauses)
     with _count_lock:
-        _launches[name] += 1
-        key = (name, C, T, rows, clauses)
-        _shapes[key] = _shapes.get(key, 0) + 1
+        if not torch.cuda.is_current_stream_capturing():
+            _add(key, 1)
+        elif _capture is None:
+            raise RuntimeError("probe launches are captured through CapturedLaunches")
+        else:
+            _capture[key] = _capture.get(key, 0) + 1
+
+
+class CapturedLaunches:
+    """Probe launches captured once into a CUDA graph: ``record()`` makes
+    them, on ``device``, and nothing runs until ``replay``, which runs the
+    graph on the current stream and counts each launch it holds."""
+
+    def __init__(self, record: Callable[[], object], device):
+        global _capture
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches: dict[tuple[str, int, int, int, int], int] = {}
+        with _count_lock:
+            if _capture is not None:
+                raise RuntimeError("another capture of probe launches is in progress")
+            _capture = self.launches
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+                record()
+        finally:
+            with _count_lock:
+                _capture = None
+
+    def replay(self) -> None:
+        self.graph.replay()
+        with _count_lock:
+            for key, n in self.launches.items():
+                _add(key, n)
 
 
 # -- build and bind ---------------------------------------------------------
@@ -100,6 +148,8 @@ def library() -> ctypes.CDLL:
                 p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p,
             ]
             lib.bs_probe_launch.restype = ctypes.c_int
+            lib.bs_probe_floor_launch.argtypes = [p, i64, i64, p, p, i32, i32, p, p]
+            lib.bs_probe_floor_launch.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -164,6 +214,22 @@ def probe_plain(bank: torch.Tensor, row_idx: torch.Tensor, shift: torch.Tensor,
     rows = bank.index_select(0, row_idx.long())  # [T*K, C]
     bits = (rows >> shift[:, None]) & 1
     return (bits != 0).view(T, K, -1).all(dim=1)
+
+
+def probe_floor_plain(bank: torch.Tensor, row_idx: torch.Tensor, T: int,
+                      K: int) -> torch.Tensor:
+    """-> int32[T, C]: the OR over j < K of row ``row_idx[t*K + j] & ~7``
+    (row 0 of the probe's aligned 8-row group); a row outside the bank
+    reads 0, as in the kernel."""
+    R = bank.shape[0]
+    rows = row_idx.long()
+    inside = (rows >= 0) & (rows < R)
+    words = bank.index_select(0, torch.where(inside, rows & ~7, 0))  # [T*K, C]
+    words = torch.where(inside[:, None], words, 0).view(T, K, -1)
+    out = words[:, 0].clone()
+    for j in range(1, K):
+        out |= words[:, j]
+    return out
 
 
 def pack_bitmap_plain(match: torch.Tensor) -> torch.Tensor:
@@ -243,4 +309,38 @@ def probe_clauses_pack(bank, row_idx, shift, T: int, K: int,
         clause_bits=clause_bits, member_bits=member_bits,
     )
     _count("clauses", bank.shape[1], T, len(member_bits), len(clause_bits))
+    return out
+
+
+def probe_floor(bank, row_idx, shift, T: int, K: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1f, the probe's access-pattern floor -> int32[T, C]
+    (``probe_floor_plain``): K1's launch shape and loads with no probe math.
+
+    It replaces the Pallas floor kernel of ``scripts/exp_kernel_floor.py``.
+    ``shift`` is staged as K1 stages it and never read. ``out``, an int32[T,
+    C] tensor on the bank's device, is written and returned instead of a new
+    tensor, so a chain of launches can share one output."""
+    _check(bank, row_idx, shift, T, K)
+    R, C = bank.shape
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (T, C)
+                            or not out.is_contiguous() or out.device != bank.device):
+        raise ValueError(f"out must be a contiguous int32[{T}, {C}] tensor on {bank.device}")
+    if bank.device.type == "cpu":
+        result = probe_floor_plain(bank, row_idx, T, K)
+        return result if out is None else out.copy_(result)
+    if bank.device.type != "cuda":
+        raise ValueError(f"the probe kernel runs on CUDA tensors, got {bank.device}")
+    lib = library()
+    with torch.cuda.device(bank.device):
+        if out is None:
+            out = torch.empty((T, C), dtype=torch.int32, device=bank.device)
+        stream = torch.cuda.current_stream(bank.device).cuda_stream
+        err = lib.bs_probe_floor_launch(
+            bank.data_ptr(), R, C, row_idx.data_ptr(), shift.data_ptr(), T, K,
+            out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"probe floor kernel launch failed: cudaError {err}")
+    _count("floor", C, T, T)
     return out

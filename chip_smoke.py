@@ -49,7 +49,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    threads against the host-probe engine's rows, the K3 counters set to 0
    just before its queries and read just after; with two or more cards
    also ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()``
-   against the plain version.
+   against the plain version;
+9. tools: (a) the probe's access-pattern floor kernel (K1f,
+   ``probe_floor``) against its plain version, bit-identical, at the bench
+   shape (13,480 rows, C = 32,768, T = 4) and at the refscale bank's C =
+   256, then ``tools/exp_kernel_floor.measure``: the stream floor (single
+   reductions between CUDA events), K1f and K1 per launch by the event
+   slope over CUDA-graph chains of 32 and 4,096 launches, each replay
+   counting the launches it runs; the floor counter is set to 0 just
+   before the tool and read just after; (b) the bench's T1 record
+   (``bench.kernel_record`` of that measurement, event slope) and
+   ``bench._timed_needle_queries`` on the refscale dataset through a
+   probe-backend engine (host clock); (c) T2's warm start
+   (``tools/exp_compile_cache.warm_start``: a child process loads the
+   built libraries and launches, no nvcc; host clock to a synchronize);
+   (d) ``cli`` load, search (token, field:token with a regex, ``--limit``)
+   and merge on the card, the rows equal to the host probe's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1286,6 +1301,156 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
     return out
 
 
+# -- phase 9: the tools ---------------------------------------------------------
+
+
+def floor_case(pk, bank: torch.Tensor, gen, dev, label: str, T: int = 4,
+               time_it: bool = False) -> dict:
+    """K1f against its plain version on four random probe sets (rows at
+    both ends of an 8-row group among them), bit-identical; with
+    ``time_it`` the plain version's single-call time and the kernel's single
+    launch (device time behind a spin kernel)."""
+    R, C = bank.shape
+    sets = []
+    for _ in range(4):
+        rows = torch.randint(0, R, (T * K,), generator=gen, device=dev, dtype=torch.int32)
+        rows[0::3] = rows[0::3] & ~7
+        rows[1::3] = torch.clamp(rows[1::3] | 7, max=R - 1)
+        sets.append((rows, torch.randint(0, 32, (T * K,), generator=gen, device=dev,
+                                         dtype=torch.int32)))
+    for rows, shifts in sets:
+        got = pk.probe_floor(bank, rows, shifts, T, K)
+        want = pk.probe_floor_plain(bank, rows, T, K)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe_floor {label}: kernel disagrees with plain version")
+    case = {"max_abs_err": 0}
+    if time_it:
+        case["launch_ms"] = event_ms(lambda i: pk.probe_floor(bank, *sets[i % 4], T, K), 25,
+                                     hide_host=True)
+        case["plain_ms"] = event_ms(lambda i: pk.probe_floor_plain(bank, sets[i % 4][0], T, K),
+                                    25, hide_host=True)
+    log(f"probe_floor {label} R={R} C={C} T={T} K={K}: bit-identical"
+        + (f"; single launch {case['launch_ms']:.6f} ms, plain {case['plain_ms']:.6f} ms "
+           "(CUDA events behind a spin kernel)" if time_it else ""))
+    return case
+
+
+def cli_rows(cli, argv: list[str]) -> list[str]:
+    """Run ``cli.main(argv)`` and return the JSON rows it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return [line for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def phase_cli(dev) -> None:
+    """(d) ``cli`` load, search and merge on the card against the host
+    probe, on a small JSON-lines file."""
+    from bloomsearch_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory(prefix="bloomsearch-cli-") as tmp:
+        src = os.path.join(tmp, "logs.jsonl")
+        with open(src, "w") as fh:
+            for i in range(5_000):
+                fh.write(json.dumps({"n": i, "svc": ["auth", "pay", "sched"][i % 3],
+                                     "msg": f"req{i} took {i % 97} ms status {i % 5}"}) + "\n")
+        data = os.path.join(tmp, "data")
+        where = ["--dir", data, "--device", str(dev)]
+        cli_rows(cli, ["load", *where, src])
+        searches = {
+            "token": ["--token", "req4242"],
+            "field:token + regex": ["--field-token", "svc:pay", "--regex",
+                                    r"msg=took 1\d ms status 3"],
+            "limit": ["--token", "status", "--limit", "7"],
+        }
+        for step in ("loaded", "merged"):
+            for name, argv in searches.items():
+                got = cli_rows(cli, ["search", *where, *argv])
+                host = cli_rows(cli, ["search", *where, "--probe-backend", "host",
+                                      *[a for a in argv if a not in ("--limit", "7")]])
+                if name == "limit":
+                    ok = len(got) == 7 and set(got) <= set(host)
+                else:
+                    ok = sorted(got) == sorted(host) and got
+                if not ok:
+                    raise AssertionError(f"cli search {name} ({step}): rows differ from the "
+                                         "host probe's")
+                log(f"cli search {name} ({step}) on {dev}: {len(got)} rows = host probe")
+            if step == "loaded":
+                cli_rows(cli, ["merge", *where])
+
+
+def phase_tools(dev, target_mb: int, seed: int) -> dict:
+    """Phase 9: (a) K1f against its plain version at the bench shape and at
+    the refscale bank's C = 256, then the floor tool, whose chains alone
+    give K1f's launch count; (b) the bench's T1 record of that reading and
+    its needle timing on the refscale dataset through a probe-backend
+    engine; (c) T2's warm start in a child process; (d) the CLI. -> K1f's
+    kernels-line entry."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch import bench
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.tools import exp_compile_cache
+    from bloomsearch_tpu_torch.tools import exp_kernel_floor as floor
+
+    # a. K1f against its plain version, then the floor tool.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows, _, k = floor.bench_shape()
+    bank = random_bank(rows, 32_768, gen, dev)
+    case = floor_case(pk, bank, gen, dev, "bench shape", time_it=True)
+    del bank
+    floor_case(pk, random_bank(REFSCALE_ROWS, 256, gen, dev), gen, dev, "refscale width")
+    torch.cuda.empty_cache()
+    pk.reset_launch_counts()
+    m = floor.measure(dev, log=log)
+    launches = pk.launch_counts()["floor"]
+    log(f"floor tool (event slope over CUDA-graph chains of {m['floor_slope']['n_small']} and "
+        f"{m['floor_slope']['n_large']} launches; stream floor from single reductions): "
+        f"stream {m['stream_gbps']:.1f} GB/s, K1f {m['floor_ms']:.6f} ms/launch, K1 "
+        f"{m['probe_ms']:.6f} ms/launch, K1/K1f {m['probe_over_floor']:.3f}; K1f launches "
+        f"{launches}")
+
+    # b. The bench's T1 record, from the floor tool's reading above (the
+    # bench's kernel phase runs the same measure at the same shape), then
+    # its needle timing at refscale.
+    t1 = bench.kernel_record(m)
+    log(f"bench T1 (event slope, the floor tool's chains): {json.dumps(t1)}")
+    store = bt.FileSystemDataStore(refscale_dataset(target_mb, seed))
+    engine = bt.BloomSearchEngine(
+        engine_config(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30,
+                      mesh_devices=1), store, store)
+    engine.start()
+    try:
+        needle = bench._timed_needle_queries(engine, store)
+    finally:
+        engine.stop(timeout=600)
+    if needle["backend"] != "device" or needle["rows"] <= 0:
+        raise AssertionError(f"bench needle timing: {needle}")
+    log(f"bench needle queries (host clock, probe engine on {dev}): {json.dumps(needle)}")
+
+    # c. T2: a restart loads the built libraries and launches, no nvcc.
+    warm = exp_compile_cache.warm_start(log)
+
+    # d. The CLI on the card.
+    phase_cli(dev)
+    torch.cuda.empty_cache()
+    return {
+        "entry": {
+            "name": "probe_floor", "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": "scripts/exp_kernel_floor.py:165", "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": m["floor_ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": m["floor_bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+        },
+        "floor": {key: v for key, v in m.items() if not key.endswith("_slope")},
+        "floor_launch_ms": case["launch_ms"], "t1": t1, "needle": needle, "t2_warm": warm,
+    }
+
+
 def probe_phases(dev, args, cases: dict, done) -> list[dict]:
     """Phases 5 and 6: the probe engine and the main-path shapes -> the
     K1 epilogues' entries of the kernels line."""
@@ -1357,6 +1522,9 @@ def main(argv=None) -> int:
         log(json.dumps({"mesh_engine": mesh_engine}))
     finally:
         shutil.rmtree(sidecar, ignore_errors=True)
+    tools = phase_tools(dev, args.target_mb, args.seed)
+    done("tools")
+    log(json.dumps({"tools": {k: v for k, v in tools.items() if k != "entry"}}))
     for name, (counter, replaces) in SCAN_MODES.items():
         if counter not in scan_cases:
             raise AssertionError(f"{name} was not launched on the serving path")
@@ -1378,6 +1546,7 @@ def main(argv=None) -> int:
             **{k: case[k] for k in ("launches_ms", "shard_ms", "unsharded_ms",
                                     "unsharded_call_ms", "one_shard_call_ms")},
         })
+    kernels.append(tools["entry"])
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main path")

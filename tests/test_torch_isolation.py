@@ -95,6 +95,65 @@ def test_scale_out_modules_are_held_to_the_same_rule():
         assert module in names, module
 
 
+def test_tools_modules_are_held_to_the_same_rule():
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for module in ("perf.py", "cli.py", "bench.py", "tools/timing.py",
+                   "tools/exp_kernel_floor.py", "tools/exp_compile_cache.py",
+                   "tools/gen_bench_datasets.py"):
+        assert module in names, module
+
+
+def test_cli_and_perf_need_a_card_unless_given_device_cpu(tmp_path, capsys):
+    """Both default to --device cuda and, with no card, fail as the engine
+    does; with --device cpu they run on the plain versions."""
+    from bloomsearch_tpu_torch import cli, perf
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    calls = (
+        (cli.main, ["search", "--dir", str(tmp_path / "a"), "--token", "x"]),
+        (perf.main, ["query", "--dir", str(tmp_path / "b"), "--repeat", "1"]),
+    )
+    for main, argv in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        main(argv + ["--device", "cpu"])
+    assert "# 0 rows" in capsys.readouterr().err
+
+
+def test_bench_needs_a_card_unless_given_device_cpu(monkeypatch, capsys):
+    from bloomsearch_tpu_torch import bench
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    assert bench.main([]) == 2
+    assert capsys.readouterr().out == ""
+
+    class Reached(Exception):
+        pass
+
+    def kernel_bench(device):
+        assert device == torch.device("cpu")
+        raise Reached
+
+    monkeypatch.setattr(bench, "kernel_bench", kernel_bench)
+    with pytest.raises(Reached):
+        bench.main(["--device", "cpu"])
+
+
+def test_bench_module_exits_non_zero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    result = subprocess.run(
+        [sys.executable, "-m", "bloomsearch_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=env,
+    )
+    assert result.returncode == 2 and result.stdout == ""
+    assert "no CUDA device" in result.stderr
+
+
 def test_default_mesh_on_cuda_raises_without_a_card():
     from bloomsearch_tpu_torch.parallel import default_mesh
 
