@@ -3,7 +3,7 @@
 // Replaces bloomsearch_tpu/bloom/pallas_kernels.py::byte_scan_pallas_swar
 // in stream mode (stream_stride = 480, slots = 1) and the XLA code around it
 // in bloomsearch_tpu/rowcache.py::_device_scan_fn: scan_all (the whole
-// stream) and scan_segments (up to 4 dynamic_slice segments, concatenated).
+// stream) and scan_segments (dynamic_slice segments, concatenated).
 //
 // What it computes. The row stream is int32[rows, 128]: each row is one
 // 512-byte chunk of a lowercased byte stream, packed little-endian 4 bytes
@@ -12,135 +12,404 @@
 // 32 bytes) occurs at some start s < 480 of the chunk; s + 32 <= 512, so a
 // window never leaves its chunk. A needle of length 0 (a padding row)
 // matches every chunk, as in the TPU kernel. Bit i of output word w of row
-// n is logical chunk 32w + i. Dense mode scans chunk g = row g; segment
-// mode maps logical chunk g to row seg_starts[g / seg_chunks] + g %
-// seg_chunks, so the segments are never copied out of the stream.
-//
-// Design. One warp per chunk, 32 warps per block. A warp stages its chunk
-// in shared memory with one 16-byte load per lane (the 512 bytes of a row
-// are one coalesced transaction group); each lane then tests the starts
-// s = lane, lane + 32, ... < 480 byte by byte, stopping at the first
-// mismatch, and __any_sync joins the lanes. The block's 32 chunk bits per
-// needle meet in one shared word, and one thread per needle writes it: the
-// per-start hit matrix never reaches device memory. The TPU kernel's
-// 4-alignment x W-word pattern/mask SWAR existed because Mosaic rolls
-// only 32-bit lanes; bytes in shared memory need none of it. Bytes are
-// compared as unsigned char, so chunk bytes >= 0x80 (the sign bit of an
-// int32 word) compare like any other.
+// n is logical chunk 32w + i. Dense mode scans chunk g = row g. Segment
+// mode takes up to 4 ranges (first row, chunk count), each count a
+// multiple of 32, and maps logical chunk g to its range's rows in order,
+// so the ranges are never copied out of the stream.
 //
 // What bounds it. The work reads each chunk once (512 bytes) and writes
-// n_real bits per chunk: at 3.35 TB/s an H100 SXM moves a 1.84 GB stream in
-// 0.55 ms. The compares are at least one per (needle, start), 480 per chunk
-// per needle, which at 67 TOP/s stays below the byte time for up to about
-// 8 needles. This simple form is bound by instruction issue instead (a
-// lane's byte loop from shared memory, several instructions per compare),
-// so it is expected to run several times above the byte bound on a dense
-// scan; a wider-word compare and several chunks per warp are left for a
-// later change measured against these numbers.
+// n_real bits per chunk: at 3.35 TB/s an H100 SXM moves the 1.84 GB
+// refscale stream in 0.55 ms. The compares are one per (needle, start),
+// 480 per chunk and needle, which at 67 TOP/s stays below the byte time up
+// to about 8 needles; so bytes bound it, and the design has to keep the
+// memory pipe busy while it compares, at an issue cost per (start, needle)
+// of about one instruction.
+//
+// Design.
+// - Loads in flight while comparing: two persistent blocks per SM, each
+//   walking tiles of 32 chunks (16 KB, one output word per needle; in
+//   segment mode a tile never straddles two ranges) through a ring of
+//   STAGES tiles in shared memory. One loader warp fills the ring with
+//   TMA's 1-D bulk copy (cp.async.bulk, completing on a "full" mbarrier)
+//   and refills a stage once the compute warps have arrived on its "empty"
+//   mbarrier, so the next tiles arrive while the current one is compared.
+// - Word-wide compares, chunk bytes read once for all needles: a compute
+//   warp takes one chunk at a time; each lane holds its 16 bytes in
+//   registers plus the next lane's first word (__shfl_down_sync) and forms
+//   the 4-byte window at each of its 16 positions with __funnelshift_r.
+//   Each needle has a 4-byte anchor, kept in registers (the needle count is
+//   a template parameter): a needle of up to 4 bytes is its own anchor,
+//   under a mask below 4 bytes, and a window that equals it at a start
+//   < 480 is a hit (lanes 30 and 31 hold bytes 480-511 and own no such
+//   start); a longer needle is anchored on one of its 4-byte windows, one
+//   compare per (window, needle), and a window that equals it gives a
+//   start that is checked against the whole needle, word by word, from
+//   the chunk in shared memory (start + 28 <= 507, so word 127 is the last
+//   read). The anchor is the needle's window with the most distinct bytes,
+//   the last of equals (anchor_at): not its first 4 bytes, because in
+//   lowercased JSON a needle such as "level":"error" begins with a field
+//   name found in every row, and not a fixed window, because on a run of
+//   one byte a needle of that byte with one other byte would make every
+//   start a candidate wherever the anchor misses the odd byte.
+// - Results without atomics: __reduce_or_sync joins the lanes' needle bits
+//   per chunk; lane n keeps needle n's bits of the warp's chunks in a
+//   register, the loader warp ORs the compute warps' words for the tile and
+//   stores one word per needle.
+// Bytes are compared as unsigned 32-bit words, so chunk bytes >= 0x80 (the
+// sign bit of an int32 word) compare like any other.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define CHUNK_BYTES 512
-#define CHUNK_WORDS 128
 #define STRIDE 480
 #define MAX_WINDOW 32
 #define MAX_NEEDLES 8
 #define MAX_SEGS 4
-#define WARPS 32
+#define TILE_CHUNKS 32
+#define TILE_BYTES (TILE_CHUNKS * CHUNK_BYTES)
+#define STAGES 4
+#define COMPUTE_WARPS 16
+#define THREADS ((COMPUTE_WARPS + 1) * 32)
+#define RING_BYTES (STAGES * TILE_BYTES)
+#define MAX_DEVICES 64
+#define FULL_MASK 0xffffffffu
+
+// Everything but the C entry point has internal linkage: a process may load
+// two builds of this file (another version, to compare), and a template's
+// function-local static would otherwise be one object shared by both.
+namespace {
 
 struct Needles {
-  uint8_t bytes[MAX_NEEDLES][MAX_WINDOW];
+  uint32_t words[MAX_NEEDLES][MAX_WINDOW / 4];  // bytes, little-endian
+  uint32_t anchor[MAX_NEEDLES];       // the needle's bytes at anchor_at..+3
+  uint32_t anchor_mask[MAX_NEEDLES];  // those of them in the needle
+  int32_t anchor_at[MAX_NEEDLES];
   int32_t lens[MAX_NEEDLES];
-  int32_t n_real;
+  uint32_t short_needles;  // bit n: lens[n] <= 4, the anchor is the needle
 };
 
-struct Segments {
-  int64_t starts[MAX_SEGS];
-  int64_t seg_chunks;  // 0: dense mode
+struct Ranges {
+  int64_t starts[MAX_SEGS];        // first row of each range
+  int64_t offsets[MAX_SEGS + 1];   // first logical chunk of each range
+  int32_t n;                       // 0: dense mode
 };
 
-__global__ void __launch_bounds__(WARPS * 32) byte_scan_kernel(
-    const int32_t* __restrict__ rows, int64_t words_per_needle,
-    const __grid_constant__ Needles nd, const __grid_constant__ Segments seg,
-    int32_t* __restrict__ out) {
-  __shared__ __align__(16) uint8_t s_chunk[WARPS][CHUNK_BYTES];
-  __shared__ uint8_t s_needle[MAX_NEEDLES][MAX_WINDOW];
-  __shared__ int32_t s_len[MAX_NEEDLES];
-  __shared__ uint32_t s_hit[MAX_NEEDLES];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// First row of tile t (32 logical chunks, all in one range).
+__device__ __forceinline__ int64_t tile_row(const Ranges& rg, int64_t t) {
+  const int64_t g = t * TILE_CHUNKS;
+  if (rg.n == 0) return g;
+  int r = 0;
+  while (r + 1 < rg.n && g >= rg.offsets[r + 1]) ++r;
+  return rg.starts[r] + (g - rg.offsets[r]);
+}
+
+// The chunk's bytes b..b+3 against `want`, of which the first `left` bytes
+// count.
+__device__ __forceinline__ bool word_matches(const uint32_t* cw, int b, uint32_t want, int left) {
+  const uint32_t x = __funnelshift_r(cw[b >> 2], cw[(b >> 2) + 1], 8 * (b & 3));
+  const uint32_t m = left >= 4 ? FULL_MASK : (1u << (8 * left)) - 1u;
+  return ((x ^ want) & m) == 0;
+}
+
+// The needle (len > 4 bytes, words nw) against the chunk cw at start
+// s < 480. The first word first: a candidate whose anchor is common text
+// (a JSON value's quote and colon) mostly fails there in one step; the rest
+// issue their loads at once. s + 28 <= 507, so word 127 is the last read.
+__device__ __forceinline__ bool match(const uint32_t* cw, int s, const uint32_t* nw, int len) {
+  if (!word_matches(cw, s, nw[0], len)) return false;
+  bool ok = true;
+#pragma unroll
+  for (int j = 4; j < MAX_WINDOW; j += 4)
+    if (j < len) ok &= word_matches(cw, s + j, nw[j >> 2], len - j);
+  return ok;
+}
+
+// The needles of `todo` (longer than 4 bytes, their anchor seen at one of
+// this lane's windows win[i], bytes 16 * lane + i..+3) checked whole at
+// each start the anchor gives -> bit n: needle n occurs at a start < 480.
+__device__ __forceinline__ uint32_t verify_lane(const uint32_t* cw, const uint32_t (&win)[16],
+                                                int lane, uint32_t todo, const Needles& nd) {
+  uint32_t hits = 0;
+  while (todo) {
+    const int n = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const uint32_t a = nd.anchor[n], m = nd.anchor_mask[n];
+    const int at = nd.anchor_at[n];
+    uint32_t cands = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) cands |= (uint32_t)(((win[i] ^ a) & m) == 0) << i;
+    // Windows whose start 16 * lane + i - at lies in [0, 480).
+    const int lo = max(at - 16 * lane, 0), hi = min(at + STRIDE - 16 * lane, 16);
+    cands &= hi > lo ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
+    while (cands) {
+      const int i = __ffs(cands) - 1;
+      cands &= cands - 1;
+      if (match(cw, 16 * lane + i - at, nd.words[n], nd.lens[n])) {
+        hits |= 1u << n;
+        break;
+      }
+    }
+  }
+  return hits;
+}
+
+// Loader lanes n < n_real: OR the compute warps' words of needle n for
+// tile t and store it.
+__device__ __forceinline__ void store_tile(uint32_t (*part)[COMPUTE_WARPS], int n_real,
+                                           int lane, uint32_t* out, int64_t n_tiles, int64_t t) {
+  if (lane < n_real) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int c = 0; c < COMPUTE_WARPS; ++c) w |= part[lane][c];
+    out[lane * n_tiles + t] = w;
+  }
+}
+
+template <int NR>
+__global__ void __launch_bounds__(THREADS, 2) byte_scan_kernel(
+    const int32_t* __restrict__ rows, int64_t n_tiles, const __grid_constant__ Needles nd,
+    const __grid_constant__ Ranges rg, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  __shared__ uint32_t part[STAGES][MAX_NEEDLES][COMPUTE_WARPS];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x < MAX_NEEDLES * MAX_WINDOW)
-    s_needle[threadIdx.x / MAX_WINDOW][threadIdx.x % MAX_WINDOW] =
-        nd.bytes[threadIdx.x / MAX_WINDOW][threadIdx.x % MAX_WINDOW];
-  if (threadIdx.x < MAX_NEEDLES) {
-    s_len[threadIdx.x] = nd.lens[threadIdx.x];
-    s_hit[threadIdx.x] = 0u;
-  }
-
-  // The logical chunk count is a multiple of 32, so every warp of a block
-  // has a chunk and the full-mask __any_sync below sees all 32 lanes.
-  const int64_t g = (int64_t)blockIdx.x * WARPS + warp;
-  int64_t row = g;
-  if (seg.seg_chunks > 0)
-    row = seg.starts[g / seg.seg_chunks] + g % seg.seg_chunks;
-  const uint4* src = reinterpret_cast<const uint4*>(rows + row * CHUNK_WORDS);
-  reinterpret_cast<uint4*>(s_chunk[warp])[lane] = __ldg(src + lane);
-  __syncthreads();
-
-  const uint8_t* c = s_chunk[warp];
-  for (int n = 0; n < nd.n_real; ++n) {
-    const int len = s_len[n];
-    const uint8_t* needle = s_needle[n];
-    bool found = len == 0;
-    for (int s = lane; s < STRIDE && !found; s += 32) {
-      int j = 0;
-      while (j < len && c[s + j] == needle[j]) ++j;
-      found = j == len;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], COMPUTE_WARPS * 32);
     }
-    if (__any_sync(0xffffffffu, found) && lane == 0)
-      atomicOr(&s_hit[n], 1u << warp);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x < nd.n_real)
-    out[threadIdx.x * words_per_needle + blockIdx.x] = (int32_t)s_hit[threadIdx.x];
+  const int64_t step = gridDim.x;
+
+  if (warp == COMPUTE_WARPS) {
+    // Loader: fill the ring; once the compute warps release a stage, store
+    // its tile's words and refill it.
+    int64_t k = 0;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += step, ++k) {
+      const int s = (int)(k % STAGES);
+      if (k >= STAGES) {
+        mbar_wait(&empty[s], (uint32_t)((k / STAGES - 1) & 1));
+        store_tile(part[s], NR, lane, out, n_tiles, t - STAGES * step);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], TILE_BYTES);
+        bulk_load(ring + s * TILE_BYTES, rows + tile_row(rg, t) * (CHUNK_BYTES / 4), TILE_BYTES,
+                  &full[s]);
+      }
+    }
+    for (int64_t j = k > STAGES ? k - STAGES : 0; j < k; ++j) {
+      const int s = (int)(j % STAGES);
+      mbar_wait(&empty[s], (uint32_t)((j / STAGES) & 1));
+      store_tile(part[s], NR, lane, out, n_tiles, blockIdx.x + j * step);
+    }
+    return;
+  }
+
+  // The needles' anchors in registers; lanes 30, 31 (bytes 480..511) hold
+  // no start of a short needle.
+  uint32_t anchor[NR], mask[NR];
+#pragma unroll
+  for (int n = 0; n < NR; ++n) {
+    anchor[n] = nd.anchor[n];
+    mask[n] = nd.anchor_mask[n];
+  }
+  const uint32_t short_hits = lane < STRIDE / 16 ? nd.short_needles : 0u;
+  int64_t k = 0;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += step, ++k) {
+    const int s = (int)(k % STAGES);
+    mbar_wait(&full[s], (uint32_t)((k / STAGES) & 1));
+    const uint8_t* tile = ring + s * TILE_BYTES;
+    uint32_t bits = 0;  // lane n: needle n's hits among this warp's chunks
+    for (int c = warp; c < TILE_CHUNKS; c += COMPUTE_WARPS) {
+      const uint32_t* cw = reinterpret_cast<const uint32_t*>(tile + c * CHUNK_BYTES);
+      const uint4 v = reinterpret_cast<const uint4*>(cw)[lane];
+      const uint32_t w[5] = {v.x, v.y, v.z, v.w, __shfl_down_sync(FULL_MASK, v.x, 1)};
+      uint32_t win[16];  // win[i]: bytes 16 * lane + i .. + 3
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        win[i] = (i & 3) ? __funnelshift_r(w[i >> 2], w[(i >> 2) + 1], 8 * (i & 3)) : w[i >> 2];
+      uint32_t seen = 0;  // bit n: needle n's anchor at one of the lane's windows
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        bool cand = false;
+        if (mask[n] == FULL_MASK) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) cand |= win[i] == anchor[n];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) cand |= ((win[i] ^ anchor[n]) & mask[n]) == 0;
+        }
+        seen |= (uint32_t)cand << n;
+      }
+      uint32_t hits = seen & short_hits;
+      const uint32_t todo = seen & ~nd.short_needles;
+      if (todo) hits |= verify_lane(cw, win, lane, todo, nd);
+      bits |= ((__reduce_or_sync(FULL_MASK, hits) >> lane) & 1u) << c;
+    }
+    if (lane < NR) part[s][lane][warp] = bits;
+    mbar_arrive(&empty[s]);
+  }
 }
 
+// One launch of the kernel for NR needles with as many blocks as fit the
+// card at once (persistent), their count found once per device; a benign
+// race sets the same value twice. Returns cudaGetLastError() (or the error
+// of a setup call).
+int grid_cap[MAX_DEVICES][MAX_NEEDLES + 1];
+
+template <int NR>
+int launch(const int32_t* rows, int64_t chunks, const Needles& nd, const Ranges& rg,
+           int32_t* out, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (grid_cap[dev][NR] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(byte_scan_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               RING_BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, byte_scan_kernel<NR>, THREADS,
+                                                          RING_BYTES);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid_cap[dev][NR] = per_sm * sms;
+  }
+  const int64_t n_tiles = chunks / TILE_CHUNKS;
+  const int64_t blocks = n_tiles < grid_cap[dev][NR] ? n_tiles : grid_cap[dev][NR];
+  byte_scan_kernel<NR><<<(unsigned)blocks, THREADS, RING_BYTES, (cudaStream_t)stream>>>(
+      rows, n_tiles, nd, rg, reinterpret_cast<uint32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// Where a needle of len > 4 bytes is anchored: the 4-byte window with the
+// most distinct bytes, the last of equals.
+int anchor_at(const uint8_t* b, int len) {
+  if (len <= 4) return 0;
+  int best = len - 4, best_distinct = 0;
+  for (int at = len - 4; at >= 0; --at) {
+    int distinct = 1;
+    for (int i = 1; i < 4; ++i) {
+      bool seen = false;
+      for (int j = 0; j < i; ++j) seen |= b[at + i] == b[at + j];
+      distinct += !seen;
+    }
+    if (distinct > best_distinct) {
+      best = at;
+      best_distinct = distinct;
+    }
+  }
+  return best;
+}
+
+}  // namespace
+
 // Plain C entry point, bound with ctypes. needle_bytes (uint8[n_real, 32]),
-// lens (int32[n_real]) and seg_starts (int64[n_segs]) are HOST arrays that
-// travel by value in the kernel's parameters. chunks is the logical chunk
-// count (rows in dense mode, n_segs * seg_chunks in segment mode) and a
-// multiple of 32; rows_total bounds the segments. Launches on `stream` and
-// returns cudaGetLastError(): 0 when the launch was accepted.
-extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total,
-                              int64_t chunks, const uint8_t* needle_bytes,
-                              const int32_t* lens, int n_real,
-                              const int64_t* seg_starts, int n_segs,
-                              int64_t seg_chunks, int32_t* out, void* stream) {
-  if (chunks <= 0 || chunks % 32 != 0 || n_real < 1 || n_real > MAX_NEEDLES ||
-      n_segs < 0 || n_segs > MAX_SEGS)
+// lens (int32[n_real]), range_starts and range_chunks (int64[n_ranges])
+// are HOST arrays that travel by value in the kernel's parameters. chunks
+// is the logical chunk count (rows in dense mode, the sum of range_chunks
+// in segment mode) and a multiple of 32, as is each range's count;
+// rows_total bounds the ranges. Launches on `stream` and returns
+// cudaGetLastError() (or the error of a setup call): 0 when the launch was
+// accepted.
+extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t chunks,
+                              const uint8_t* needle_bytes, const int32_t* lens, int n_real,
+                              const int64_t* range_starts, const int64_t* range_chunks,
+                              int n_ranges, int32_t* out, void* stream) {
+  if (chunks <= 0 || chunks % TILE_CHUNKS != 0 || n_real < 1 || n_real > MAX_NEEDLES ||
+      n_ranges < 0 || n_ranges > MAX_SEGS)
     return (int)cudaErrorInvalidValue;
   Needles nd = {};
-  nd.n_real = n_real;
   for (int n = 0; n < n_real; ++n) {
-    if (lens[n] < 0 || lens[n] > MAX_WINDOW) return (int)cudaErrorInvalidValue;
-    nd.lens[n] = lens[n];
-    for (int j = 0; j < MAX_WINDOW; ++j) nd.bytes[n][j] = needle_bytes[n * MAX_WINDOW + j];
+    const int len = lens[n];
+    if (len < 0 || len > MAX_WINDOW) return (int)cudaErrorInvalidValue;
+    const uint8_t* b = needle_bytes + n * MAX_WINDOW;
+    nd.lens[n] = len;
+    for (int j = 0; j < len; ++j) nd.words[n][j / 4] |= (uint32_t)b[j] << (8 * (j % 4));
+    // A needle of up to 4 bytes is its own anchor (a window that matches
+    // it is a hit); a longer one is checked whole where its anchor is seen.
+    nd.anchor_at[n] = anchor_at(b, len);
+    nd.anchor_mask[n] = len >= 4 ? FULL_MASK : (1u << (8 * len)) - 1u;
+    for (int j = 0; j < 4 && nd.anchor_at[n] + j < len; ++j)
+      nd.anchor[n] |= (uint32_t)b[nd.anchor_at[n] + j] << (8 * j);
+    if (len <= 4) nd.short_needles |= 1u << n;
   }
-  Segments seg = {};
-  if (n_segs > 0) {
-    if (seg_chunks <= 0 || chunks != n_segs * seg_chunks) return (int)cudaErrorInvalidValue;
-    seg.seg_chunks = seg_chunks;
-    for (int s = 0; s < n_segs; ++s) {
-      if (seg_starts[s] < 0 || seg_starts[s] + seg_chunks > rows_total)
+  Ranges rg = {};
+  rg.n = n_ranges;
+  if (n_ranges > 0) {
+    int64_t off = 0;
+    for (int r = 0; r < n_ranges; ++r) {
+      if (range_chunks[r] <= 0 || range_chunks[r] % TILE_CHUNKS != 0 || range_starts[r] < 0 ||
+          range_starts[r] + range_chunks[r] > rows_total)
         return (int)cudaErrorInvalidValue;
-      seg.starts[s] = seg_starts[s];
+      rg.starts[r] = range_starts[r];
+      rg.offsets[r] = off;
+      off += range_chunks[r];
     }
+    rg.offsets[n_ranges] = off;
+    if (off != chunks) return (int)cudaErrorInvalidValue;
   } else if (chunks > rows_total) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t blocks = chunks / WARPS;
-  byte_scan_kernel<<<(unsigned)blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      rows, chunks / 32, nd, seg, out);
-  return (int)cudaGetLastError();
+
+  switch (n_real) {
+    case 1: return launch<1>(rows, chunks, nd, rg, out, stream);
+    case 2: return launch<2>(rows, chunks, nd, rg, out, stream);
+    case 3: return launch<3>(rows, chunks, nd, rg, out, stream);
+    case 4: return launch<4>(rows, chunks, nd, rg, out, stream);
+    case 5: return launch<5>(rows, chunks, nd, rg, out, stream);
+    case 6: return launch<6>(rows, chunks, nd, rg, out, stream);
+    case 7: return launch<7>(rows, chunks, nd, rg, out, stream);
+    default: return launch<8>(rows, chunks, nd, rg, out, stream);
+  }
 }

@@ -5,9 +5,9 @@ The CUDA kernel (``csrc/scan.cu``) replaces the JAX package's Pallas kernel
 ``bloom/pallas_kernels.py::byte_scan_pallas_swar`` in stream mode and the
 XLA code around it in ``rowcache.py::_device_scan_fn`` (``scan_all`` and
 ``scan_segments``, whose ``dynamic_slice`` + ``concatenate`` copy the kernel
-replaces with a row mapping). It is compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface at first use, and bound with
-``ctypes``.
+replaces with a row mapping over ranges that may differ in length). It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface at first use, and bound with ``ctypes``.
 
 Each wrapper takes the row stream ``int32[rows, 128]`` (lowercased 512-byte
 chunks, bytes packed little-endian 4 per word, 480 payload bytes each) on a
@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ STREAM_STRIDE = 480  # payload bytes per chunk: valid match starts are < 480
 MAX_SCAN_WINDOW = 32  # longest needle the kernel takes (rowcache.MAX_NEEDLE)
 MAX_SCAN_NEEDLES = 8  # needles per launch (callers chunk above this)
 MAX_SEGMENTS = 4
+TILE_CHUNKS = 32  # chunks of one kernel tile and one output word
 # Word-loop buckets of the TPU kernel: a needle of length L spans at most
 # ceil((L + 3) / 4) packed words. The CUDA kernel needs no bucket; callers
 # still pass one, so launches keep the JAX package's shape keys.
@@ -63,8 +64,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 _count_lock = threading.Lock()
 _launches = {"stream": 0, "segments": 0}
-# (mode, logical chunks G, n_real, n_segs, seg_chunks, word bucket) -> launches
-_shapes: dict[tuple[str, int, int, int, int, int], int] = {}
+# (mode, logical chunks G, n_real, n_segs, range chunk counts, word bucket)
+# -> launches; the range counts are () in stream mode.
+_shapes: dict[tuple[str, int, int, int, tuple[int, ...], int], int] = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -73,9 +75,9 @@ def launch_counts() -> dict[str, int]:
         return dict(_launches)
 
 
-def launch_shapes() -> dict[tuple[str, int, int, int, int, int], int]:
-    """Kernel launches per (mode, logical chunks G, n_real, n_segs,
-    seg_chunks, word bucket) since the last reset."""
+def launch_shapes() -> dict[tuple[str, int, int, int, tuple[int, ...], int], int]:
+    """Kernel launches per (mode, logical chunks G, n_real, n_segs, range
+    chunk counts as launched, word bucket) since the last reset."""
     with _count_lock:
         return dict(_shapes)
 
@@ -87,11 +89,11 @@ def reset_launch_counts() -> None:
         _shapes.clear()
 
 
-def _count(mode: str, G: int, n_real: int, n_segs: int, seg_chunks: int,
+def _count(mode: str, G: int, n_real: int, range_chunks: Sequence[int],
            max_words: int) -> None:
     with _count_lock:
         _launches[mode] += 1
-        key = (mode, G, n_real, n_segs, seg_chunks, max_words)
+        key = (mode, G, n_real, len(range_chunks), tuple(range_chunks), max_words)
         _shapes[key] = _shapes.get(key, 0) + 1
 
 
@@ -113,7 +115,7 @@ def library() -> ctypes.CDLL:
             build_library()
             lib = ctypes.CDLL(LIBRARY)
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, i32, i64, p, p]
+            lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, p, i32, p, p]
             lib.bs_scan_launch.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -144,9 +146,24 @@ def _check(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
     return np.ascontiguousarray(real, dtype=np.uint8), lens
 
 
-def _clamp_starts(starts: Sequence[int], rows: int, seg_chunks: int) -> list[int]:
-    """Segment starts clamped into the stream, as ``dynamic_slice`` does."""
-    return [min(max(int(s), 0), rows - seg_chunks) for s in starts]
+def segment_layout(starts: Sequence[int], chunks: Union[int, Sequence[int]],
+                   rows: int) -> tuple[list[int], list[int]]:
+    """Requested ranges (first row, chunk count; one count for all, or one
+    each) -> (the first row the kernel reads for each, each count rounded
+    up to a multiple of 32). A rounded range is clamped into the stream as
+    ``dynamic_slice`` clamps a segment, so one ending at the stream's end
+    stays legal; range p's requested chunks then sit at logical chunk
+    ``sum(rounded[:p]) + start - read_start`` of the output. Raises on what
+    the kernel does not take."""
+    n_segs = len(starts)
+    counts = [chunks] * n_segs if isinstance(chunks, (int, np.integer)) else list(chunks)
+    if not 1 <= n_segs <= MAX_SEGMENTS or len(counts) != n_segs:
+        raise ValueError(f"{n_segs} ranges with {len(counts)} counts: the kernel takes "
+                         f"1..{MAX_SEGMENTS}")
+    rounded = [-(-int(n) // TILE_CHUNKS) * TILE_CHUNKS for n in counts]
+    if min(counts) <= 0 or max(rounded) > rows:
+        raise ValueError(f"range chunk counts {counts} for a stream of {rows} rows")
+    return [min(max(int(s), 0), rows - n) for s, n in zip(starts, rounded)], rounded
 
 
 # -- the plain version (the CPU path and the kernel's reference) -------------
@@ -154,17 +171,18 @@ def _clamp_starts(starts: Sequence[int], rows: int, seg_chunks: int) -> list[int
 
 def byte_scan_plain(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
                     n_real: int, seg_starts: Optional[Sequence[int]] = None,
-                    seg_chunks: int = 0) -> torch.Tensor:
+                    seg_chunks: Union[int, Sequence[int]] = 0) -> torch.Tensor:
     """-> int32[n_real, G/32]: the sliding-window form of the JAX package's
-    ``_scan_matrix`` over every logical chunk (``rows32``, or the
-    ``seg_chunks``-long segments at ``seg_starts``, concatenated).
+    ``_scan_matrix`` over every logical chunk (``rows32``, or the ranges at
+    ``seg_starts`` of ``seg_chunks`` chunks, laid out by
+    ``segment_layout`` and concatenated).
 
     Allocates bool[n_real, G, 480]: call it in pieces over a large stream.
     ``>>`` on int32 is arithmetic, but ``& 0xFF`` keeps exactly byte i, so
     bytes >= 0x80 in the top position read right."""
     if seg_starts is not None:
-        starts = _clamp_starts(seg_starts, rows32.shape[0], seg_chunks)
-        rows32 = torch.cat([rows32[s : s + seg_chunks] for s in starts])
+        starts, counts = segment_layout(seg_starts, seg_chunks, rows32.shape[0])
+        rows32 = torch.cat([rows32[s : s + n] for s, n in zip(starts, counts)])
     G = rows32.shape[0]
     dev = rows32.device
     rows2d = torch.stack(
@@ -184,11 +202,12 @@ def byte_scan_plain(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
 
 
 def _launch(rows32: torch.Tensor, needle_bytes: np.ndarray, lens: np.ndarray,
-            chunks: int, starts: Sequence[int], seg_chunks: int) -> torch.Tensor:
+            chunks: int, starts: Sequence[int], range_chunks: Sequence[int]) -> torch.Tensor:
     if rows32.device.type != "cuda":
         raise ValueError(f"the scan kernel runs on CUDA tensors, got {rows32.device}")
     n_real = needle_bytes.shape[0]
     seg = np.ascontiguousarray(starts, dtype=np.int64).reshape(-1)
+    counts = np.ascontiguousarray(range_chunks, dtype=np.int64).reshape(-1)
     lib = library()
     with torch.cuda.device(rows32.device):
         out = torch.empty((n_real, chunks // 32), dtype=torch.int32, device=rows32.device)
@@ -196,7 +215,8 @@ def _launch(rows32: torch.Tensor, needle_bytes: np.ndarray, lens: np.ndarray,
         err = lib.bs_scan_launch(
             rows32.data_ptr(), rows32.shape[0], chunks,
             needle_bytes.ctypes.data, lens.ctypes.data, n_real,
-            seg.ctypes.data if seg.size else None, seg.size, seg_chunks,
+            seg.ctypes.data if seg.size else None,
+            counts.ctypes.data if counts.size else None, seg.size,
             out.data_ptr(), stream,
         )
     if err != 0:
@@ -213,26 +233,24 @@ def byte_scan_stream(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray
         raise ValueError(f"the stream's rows must be a positive multiple of 32, got {G}")
     if rows32.device.type == "cpu":
         return byte_scan_plain(rows32, needle_bytes, real_lens, n_real)
-    out = _launch(rows32, needle_bytes, real_lens, G, (), 0)
-    _count("stream", G, n_real, 0, 0, max_words)
+    out = _launch(rows32, needle_bytes, real_lens, G, (), ())
+    _count("stream", G, n_real, (), max_words)
     return out
 
 
 def byte_scan_segments(rows32: torch.Tensor, seg_starts: Sequence[int],
                        needles: np.ndarray, lens: np.ndarray, *, n_real: int,
-                       max_words: int, seg_chunks: int) -> torch.Tensor:
-    """Segment mode (``scan_segments``): -> int32[n_real, n_segs*seg_chunks/32]
-    over the ``seg_chunks``-long segments at ``seg_starts`` (clamped into
-    the stream), in order."""
+                       max_words: int, seg_chunks: Union[int, Sequence[int]]) -> torch.Tensor:
+    """Segment mode (``scan_segments``): -> int32[n_real, sum(rounded)/32]
+    over up to 4 ranges at ``seg_starts`` of ``seg_chunks`` chunks (one
+    count for all, the JAX package's form, or one each), each rounded up
+    to a multiple of 32 chunks and clamped into the stream
+    (``segment_layout``), in order. The chunks added by rounding are read
+    and scanned; callers ignore their bits."""
     needle_bytes, real_lens = _check(rows32, needles, lens, n_real, max_words)
-    n_segs = len(seg_starts)
-    if not 1 <= n_segs <= MAX_SEGMENTS:
-        raise ValueError(f"{n_segs} segments: the kernel takes 1..{MAX_SEGMENTS}")
-    if seg_chunks <= 0 or seg_chunks % 32 or seg_chunks > rows32.shape[0]:
-        raise ValueError(f"seg_chunks={seg_chunks} for a stream of {rows32.shape[0]} rows")
-    starts = _clamp_starts(seg_starts, rows32.shape[0], seg_chunks)
+    starts, counts = segment_layout(seg_starts, seg_chunks, rows32.shape[0])
     if rows32.device.type == "cpu":
-        return byte_scan_plain(rows32, needle_bytes, real_lens, n_real, starts, seg_chunks)
-    out = _launch(rows32, needle_bytes, real_lens, n_segs * seg_chunks, starts, seg_chunks)
-    _count("segments", n_segs * seg_chunks, n_real, n_segs, seg_chunks, max_words)
+        return byte_scan_plain(rows32, needle_bytes, real_lens, n_real, starts, counts)
+    out = _launch(rows32, needle_bytes, real_lens, sum(counts), starts, counts)
+    _count("segments", sum(counts), n_real, counts, max_words)
     return out

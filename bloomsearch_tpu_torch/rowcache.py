@@ -893,8 +893,10 @@ class DeviceRowCache:
 
         A one-time check that the kernel launches on this stream (there is
         no per-shape compile; ``load_scan_kernel`` loads the library).
-        ``blocks`` sizes the segment launch like a live one; ``yield_to`` is
-        polled before each launch (the engine's queries-in-flight gate).
+        ``blocks`` sizes the segment launch like a live one (the largest
+        block's range, one needle row), and it runs when a block that size
+        can scan sparse; ``yield_to`` is polled before each launch (the
+        engine's queries-in-flight gate).
         Build, launch and device errors raise.
         """
         bucket = self._bucket
@@ -905,24 +907,24 @@ class DeviceRowCache:
         phys_cap = logical_size(matrix, 0)
         max_chunks = max((b.num_chunks for b in blocks), default=1)
         seg_chunks = max(_round_up_pow2(max(max_chunks, 1)), 512)
-        padded = np.zeros((MAX_SCAN_NEEDLES, MAX_NEEDLE), dtype=np.int32)
-        lens = np.zeros(MAX_SCAN_NEEDLES, dtype=np.int32)
+        padded = np.zeros((1, MAX_NEEDLE), dtype=np.int32)
+        lens = np.zeros(1, dtype=np.int32)
         max_words = SCAN_WORD_BUCKETS[0]
         if yield_to is not None:
             yield_to()
         if self.mesh is not None:
             sharded_scan_all_rows(
-                self.mesh, matrix, padded[:1], lens[:1], n_real=1, max_words=max_words
+                self.mesh, matrix, padded, lens, n_real=1, max_words=max_words
             )
             return 1
-        byte_scan_stream(matrix, padded[:1], lens[:1], n_real=1, max_words=max_words).cpu()
+        byte_scan_stream(matrix, padded, lens, n_real=1, max_words=max_words).cpu()
         launched = 1
         if seg_chunks * 4 <= phys_cap:
             if yield_to is not None:
                 yield_to()
             byte_scan_segments(
-                matrix, [0], padded, lens, n_real=MAX_SCAN_NEEDLES,
-                max_words=max_words, seg_chunks=seg_chunks,
+                matrix, [0], padded, lens, n_real=1,
+                max_words=max_words, seg_chunks=max(max_chunks, 1),
             ).cpu()
             launched += 1
         return launched
@@ -1074,13 +1076,13 @@ class DeviceRowCache:
                 if seg is not None and seg[1] > 0
             }
         )
+        # The sparse-or-dense rule is the JAX package's, on its launch
+        # shapes (pow2 segments of at least 512 chunks, a pow2 count of at
+        # most 4), so both packages launch the same modes: single needle
+        # queries (1-4 blocks) stay sparse, and bursts of coalesced
+        # concurrent requests fall through to the dense scan.
         seg_chunks = _round_up_pow2(max((n for _, n in ranges), default=1))
         seg_chunks = max(seg_chunks, 512)
-        # Segment-count buckets (1/2/4), padding starts at chunk 0, and the
-        # clamp at 4 segments are the JAX package's launch shapes, kept so
-        # both packages scan the same segments: single needle queries (1-4
-        # blocks) stay sparse, and bursts of coalesced concurrent requests
-        # fall through to the dense scan.
         n_segs = _round_up_pow2(len(ranges)) if ranges else 0
         sparse = (
             self.mesh is None
@@ -1089,14 +1091,17 @@ class DeviceRowCache:
             and n_segs * seg_chunks * 4 <= phys_cap
         )
         if sparse:
-            # Clamped segment starts; each range sits at a fixed offset
-            # inside its part of the logical segment sequence.
-            starts = np.zeros(n_segs, dtype=np.int64)
-            part_off: dict[tuple[int, int], tuple[int, int]] = {}
-            for p, (ps, pn) in enumerate(ranges):
-                cl = min(ps, phys_cap - seg_chunks)
-                starts[p] = cl
-                part_off[(ps, pn)] = (p, ps - cl)
+            # A sparse launch reads just the requested ranges, each rounded
+            # up to the kernel's 32-chunk tile and clamped into the stream;
+            # range (ps, pn) starts at logical chunk range_base[(ps, pn)].
+            starts, counts = _scan_kernel.segment_layout(
+                [ps for ps, _ in ranges], [pn for _, pn in ranges], phys_cap
+            )
+            offsets = np.cumsum([0] + counts[:-1])
+            range_base = {
+                rng: int(off) + rng[0] - st
+                for rng, st, off in zip(ranges, starts, offsets)
+            }
 
         fresh: dict[bytes, np.ndarray] = {}
         if missing:
@@ -1106,11 +1111,11 @@ class DeviceRowCache:
             for base in range(0, len(missing), MAX_SCAN_NEEDLES):
                 part = missing[base : base + MAX_SCAN_NEEDLES]
                 max_words = scan_word_bucket(max(len(n) for n in part))
-                # SPARSE launches use the full needle capacity, DENSE ones
-                # pow2 buckets (the JAX package's launch shapes). Padding
-                # rows carry length 0: they match every chunk and are
-                # sliced off below.
-                n_real = MAX_SCAN_NEEDLES if sparse else _round_up_pow2(len(part))
+                # SPARSE launches take just the real needles, DENSE ones
+                # pow2 buckets (the JAX package's launch shapes), whose
+                # padding rows carry length 0: they match every chunk and
+                # are sliced off below.
+                n_real = len(part) if sparse else _round_up_pow2(len(part))
                 padded = np.zeros((n_real, MAX_NEEDLE), dtype=np.int32)
                 lens = np.zeros(n_real, dtype=np.int32)
                 for row, needle in enumerate(part):
@@ -1119,8 +1124,9 @@ class DeviceRowCache:
                 self.launches += 1  # one per DEVICE launch, not per pass
                 if sparse:
                     out = byte_scan_segments(
-                        matrix, starts, padded, lens, n_real=n_real,
-                        max_words=max_words, seg_chunks=seg_chunks,
+                        matrix, [ps for ps, _ in ranges], padded, lens,
+                        n_real=n_real, max_words=max_words,
+                        seg_chunks=[pn for _, pn in ranges],
                     )
                 elif self.mesh is not None:
                     out = sharded_scan_all_rows(
@@ -1176,12 +1182,8 @@ class DeviceRowCache:
                 per_needle = {}
                 for needle in r.needles:
                     full_coords, raw_u8 = bits[needle]
-                    if full_coords or n == 0:
-                        per_needle[needle] = _unpack_bit_range(raw_u8, start, n)
-                    else:
-                        p, off = part_off[(start, n)]
-                        base = p * seg_chunks + off
-                        per_needle[needle] = _unpack_bit_range(raw_u8, base, n)
+                    first = start if full_coords or n == 0 else range_base[(start, n)]
+                    per_needle[needle] = _unpack_bit_range(raw_u8, first, n)
                 hits[key] = per_needle
             r.hits = hits
             r.done.set()

@@ -3,7 +3,7 @@
 
 Usage, from the repository root:
 
-    python3 chip_smoke.py [--target-mb 1600] [--seed 0]
+    python3 chip_smoke.py [--target-mb 1600] [--seed 0] [--old-scan SOURCE]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -18,7 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. scan kernel: the stream byte scan in dense and segment mode against its
    plain version, bit-identical: random bytes including >= 0x80, needles of
    10 lengths at every start alignment, the start-479/480 boundary, padding
-   rows, clamped segments;
+   rows, ranges of unequal and unaligned lengths (one clamped at the
+   stream's end, one ending there) and the uniform segments of the JAX
+   package's form, a repeated-byte stream (the prefix filter's worst case,
+   timed) and a lowercased-JSON stream;
 5. engine: the refscale-shaped dataset (generated from the seed in a child
    process while phases 2-4 run, and cached under ~/.cache), a
    BloomSearchEngine on device="cuda" that warms every
@@ -33,9 +36,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. serving engine: the same dataset in serving mode (the row stream pinned
    on the card, a restart sidecar in a temporary directory), the same
    queries checked against the host-probe engine, the scan counters reset
-   before it; then the scan kernel against its plain version on the
-   resident stream at every shape the engine launched, and a restarted
-   engine that loads every block from the sidecar;
+   before it; every segment launch checked to read just the requested
+   block ranges with real needles only; then the scan kernel against its
+   plain version on the resident stream at every shape the engine
+   launched (a segment launch timed after an L2 flush, its bound counted
+   on the chunks the query asked for), dense at 1, 2, 4 and 8 of the
+   engine's needles, with ``--old-scan`` an earlier scan kernel against
+   this one in turns (``turns_against_old_scan``), and a restarted engine
+   that loads every block from the sidecar;
 8. mesh (K3): (a) the serving engine's resident superbanks and stream
    placed with ``shard_bank`` and the row helpers onto a 4-shard mesh (four
    cards when four are visible, else cuda:0 four times), the needle
@@ -116,6 +124,7 @@ MESH_WRAPPERS = {
 MESH_SHARDS = 4
 SCAN_LENGTHS = (1, 2, 3, 4, 5, 7, 8, 15, 31, 32)
 SEG_CHUNKS = 16_384  # a refscale block is about 15,000 chunks
+L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2 cache
 PLAIN_PIECE = 32_768  # chunks per plain-version call over a large stream
 
 
@@ -190,18 +199,22 @@ def random_bank(rows: int, cols: int, gen: torch.Generator, dev) -> torch.Tensor
     return (words - (1 << 31)).to(torch.int32)
 
 
-def event_ms(fn, reps: int, hide_host: bool) -> float:
+def event_ms(fn, reps: int, hide_host: bool, before=None) -> float:
     """Median time of ``fn(i)`` over ``reps`` calls between CUDA events.
 
     ``hide_host``: a spin kernel first keeps the stream busy while the host
     enqueues the call, so the events bracket device time alone; without it
-    they also hold the host's launch cost (what a waiting caller sees)."""
+    they also hold the host's launch cost (what a waiting caller sees).
+    ``before``, when given, runs ahead of each call outside the events (an
+    L2 flush)."""
     fn(0)
     torch.cuda.synchronize()
     times = []
     for i in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         if hide_host:
             torch.cuda._sleep(2_000_000)  # ~1 ms of spinning at H100 clocks
         start.record()
@@ -210,6 +223,18 @@ def event_ms(fn, reps: int, hide_host: bool) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_flush_buffers: dict = {}
+
+
+def flush_l2(dev) -> None:
+    """Write a buffer larger than the card's 50 MB L2 cache, so the next
+    launch reads its inputs from device memory, as a query does."""
+    buf = _flush_buffers.get(dev)
+    if buf is None:
+        buf = _flush_buffers[dev] = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    buf.fill_(1)
 
 
 def shape_key(name: str, C: int, T: int, clauses: int = 16, members: int = 16) -> tuple:
@@ -347,12 +372,7 @@ def scan_needles(lengths, rng) -> tuple[list[bytes], np.ndarray, np.ndarray]:
     many >= 0x80) -> (needles, int32[8, 32] bytes, int32[8] lengths); rows
     past the needles are padding (length 0)."""
     needles = [bytes(rng.integers(0x41, 256, size=n, dtype=np.uint8)) for n in lengths]
-    padded = np.zeros((8, 32), np.int32)
-    lens = np.zeros(8, np.int32)
-    for r, nd in enumerate(needles):
-        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
-        lens[r] = len(nd)
-    return needles, padded, lens
+    return (needles, *pack_rows(needles, 8))
 
 
 def scan_oracle(chunks: np.ndarray, needle: bytes) -> np.ndarray:
@@ -390,9 +410,13 @@ def plain_scan(ks, rows32, needles, lens, n_real, starts=None, seg_chunks=0):
 
 
 def scan_case(ks, rows32, needles, lens, n_real, *, starts=None, seg_chunks=0,
-              max_words=9, label="", time_it=True, reps=25, plain_reps=3) -> dict:
+              max_words=9, label="", time_it=True, reps=25, plain_reps=3,
+              need_chunks=None) -> dict:
     """Hold one scan launch against its plain version (bit-identical) and,
-    with ``time_it``, time both between CUDA events."""
+    with ``time_it``, time both between CUDA events; a segment launch is
+    timed after an L2 flush, as a query finds its ranges. The bound counts
+    ``need_chunks`` (the chunks a query asked for) when given, else every
+    chunk scanned."""
     def kernel(_i=0):
         if starts is None:
             return ks.byte_scan_stream(rows32, needles, lens, n_real=n_real, max_words=max_words)
@@ -407,27 +431,84 @@ def scan_case(ks, rows32, needles, lens, n_real, *, starts=None, seg_chunks=0,
     G = got.shape[1] * 32
     real_lens = [int(v) for v in lens[:n_real]]
     hits = popcounts(got)
-    bound_ms, bound_by = scan_bound(G, real_lens, hits)
+    bound_ms, bound_by = scan_bound(need_chunks or G, real_lens, hits)
     case = {"G": G, "n_real": n_real, "max_abs_err": 0, "hits": hits,
             "bound_ms": bound_ms, "bound_by": bound_by, "out": got}
     if not time_it:
         log(f"scan {label} G={G} n_real={n_real}: bit-identical")
         return case
-    case["ms"] = event_ms(kernel, reps, hide_host=True)
+    flush = None if starts is None else (lambda: flush_l2(rows32.device))
+    case["ms"] = event_ms(kernel, reps, hide_host=True, before=flush)
     case["plain_ms"] = event_ms(
         lambda i: plain_scan(ks, rows32, needles, lens, n_real, starts, seg_chunks),
-        plain_reps, hide_host=True)
+        plain_reps, hide_host=True, before=flush)
     log(f"scan {label} G={G} n_real={n_real} lens={real_lens}: kernel_ms={case['ms']:.6f} "
-        f"plain_ms={case['plain_ms']:.6f} bound_ms={bound_ms:.6f} ({bound_by}) "
-        f"hits={hits} bit-identical")
+        f"plain_ms={case['plain_ms']:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"{need_chunks or G} chunks) hits={hits} bit-identical")
     return case
 
 
-def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920) -> None:
+def pack_rows(needles: list[bytes], n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """Needles -> (int32[n_rows, 32] bytes, int32[n_rows] lengths); rows
+    past the needles are padding (length 0)."""
+    padded = np.zeros((n_rows, 32), np.int32)
+    lens = np.zeros(n_rows, np.int32)
+    for r, nd in enumerate(needles):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    return padded, lens
+
+
+def repeated_byte_stream(G: int) -> tuple[np.ndarray, list[bytes]]:
+    """A fixed-position anchor filter's worst cases: every byte 'a',
+    needles of 'a' with another last byte (lengths 32, 31, 8, 5: every
+    start is a candidate for an anchor on the first 4 bytes), another
+    first byte (lengths 32, 5) or another 17th byte (length 32; both: every
+    start is a candidate for an anchor on the last 4 bytes). This kernel
+    anchors on a window that holds the odd byte. None hits but where
+    planted, at starts 0, 201 and 479 (and at 480, which must not hit).
+    -> (uint8[G, 512], needles)."""
+    chunks = np.full((G, 512), ord("a"), np.uint8)
+    needles = ([b"a" * (n - 1) + b"b" for n in (32, 31, 8, 5)]
+               + [b"b" + b"a" * (n - 1) for n in (32, 5)] + [b"a" * 16 + b"b" + b"a" * 15])
+    for r, nd in enumerate(needles):
+        for j, s in enumerate((0, 201, 479, 480)):
+            chunks[1000 * r + 7 * j + 3, s : s + len(nd)] = np.frombuffer(nd, np.uint8)
+    return chunks, needles
+
+
+def json_stream(G: int, rng) -> tuple[np.ndarray, list[bytes]]:
+    """Lowercased compact JSON rows cut into the stream's chunks (480
+    payload bytes, the next 32 repeated), with needles whose first bytes
+    are common there ('"', 'e', ',') -> (uint8[G, 512], needles)."""
+    words = ["error", "warn", "info", "debug", "user", "login", "timeout", "retry",
+             "disk", "cache", "payment", "order", "shipped", "failed", "ok", "eu-west"]
+    lines, size = [], 0
+    while size < G * 480 + 32:
+        rec = {"ts": int(rng.integers(1_600_000_000, 1_700_000_000)), "level": words[int(rng.integers(0, 4))],
+               "svc": words[int(rng.integers(4, 16))], "uid": f"u{int(rng.integers(0, 100_000_000)):08d}",
+               "msg": " ".join(words[int(i)] for i in rng.integers(0, 16, size=8))}
+        line = json.dumps(rec, separators=(",", ":")).lower().encode() + b"\n"
+        lines.append(line)
+        size += len(line)
+    buf = np.frombuffer(b"".join(lines)[: G * 480 + 32], np.uint8)
+    chunks = np.lib.stride_tricks.as_strided(buf, shape=(G, 512), strides=(480, 1)).copy()
+    needles = [b'"level":"error"', b'"msg":"', b'" ', b"eu-west", b'","uid":"u0000',
+               b"e", b',"svc":"payment"', b'"timeout']
+    return chunks, needles
+
+
+def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920,
+                      worst_rows: int = 65_536, json_rows: int = 32_768) -> dict:
     """K2 against its plain version: dense at n_real in {1, 2, 4, 8} over G
     random chunks with planted needles, padding rows, the 479/480 boundary
-    against a bytes oracle, and segments at n_segs in {1, 2, 4} with a
-    clamped last segment and one ending at the stream's end."""
+    against a bytes oracle; segments over ranges of unequal, unaligned
+    lengths (1, 2 and 4 of them) with one range clamped at the stream's end
+    and one ending there, and the JAX package's uniform form; the
+    repeated-byte stream (a fixed anchor's worst cases, timed) and a
+    lowercased-JSON stream. -> {"repeated_byte": {"last" | "first" |
+    "17th": the timed case of a 32-byte needle with that byte other than
+    'a'}}."""
     from bloomsearch_tpu_torch.kernels import scan as ks
 
     rng = np.random.default_rng(4)
@@ -471,24 +552,58 @@ def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920) -> None:
                 raise AssertionError(f"needle of {len(nd)} bytes: wrong hits at starts 479/480")
     log(f"scan boundary: starts at 479 hit and at 480 do not, lengths {SCAN_LENGTHS}")
 
-    # Segments of SEG_CHUNKS over a larger stream: the 15-byte needle with
-    # seven padding rows (the engine's sparse launch) and eight needles.
+    # Ranges over a larger stream as the engine's sparse launch passes them
+    # (first row, requested chunks): one real needle, and eight.
     big = torch.randint(-(1 << 31), 1 << 31, (seg_rows, 128), device=dev, dtype=torch.int64)
     big = big.to(torch.int32)
-    starts_by_n = {1: [5_000], 2: [0, seg_rows - 1_000],  # the second one clamps
-                   4: [3 * SEG_CHUNKS, 100, seg_rows - SEG_CHUNKS, seg_rows]}
-    one = np.zeros_like(pad_s)
-    one[0] = pad_s[7]
-    lens_one = np.array([lens_s[7]] + [0] * 7, np.int32)
-    for n_segs, starts in starts_by_n.items():
-        scan_case(ks, big, one, lens_one, 8, starts=starts, seg_chunks=SEG_CHUNKS,
-                  max_words=ks.scan_word_bucket(int(lens_s[7])),
-                  label=f"segments n_segs={n_segs} 1 needle + 7 padding",
-                  time_it=n_segs == 4)
-        scan_case(ks, big, pad_s, lens_s, 8, starts=starts, seg_chunks=SEG_CHUNKS,
+    ranges_by_n = {
+        1: [(5_000, 15_023)],
+        2: [(0, 14_500), (seg_rows - 15_100, 15_100)],  # rounds to 15,104: clamps
+        4: [(3 * SEG_CHUNKS, 15_234), (100, 9_001), (seg_rows - 16_384, 16_384),
+            (seg_rows, 12_000)],  # a start past the end clamps
+    }
+    for n_segs, ranges in ranges_by_n.items():
+        starts, counts = [s for s, _ in ranges], [n for _, n in ranges]
+        scan_case(ks, big, pad_s[7:8], lens_s[7:8], 1, starts=starts, seg_chunks=counts,
+                  max_words=ks.scan_word_bucket(int(lens_s[7])), need_chunks=sum(counts),
+                  label=f"segments n_segs={n_segs} 1 needle", time_it=n_segs == 4)
+        scan_case(ks, big, pad_s, lens_s, 8, starts=starts, seg_chunks=counts,
                   label=f"segments n_segs={n_segs} 8 needles", time_it=False)
+    one, lens_one = pack_rows([short[7]], 8)
+    scan_case(ks, big, one, lens_one, 8, starts=[3 * SEG_CHUNKS, 100, 0, seg_rows],
+              seg_chunks=SEG_CHUNKS, label="uniform segments (the JAX form), 1 needle + 7 "
+              "padding rows", time_it=False)
     del big, rows, edge_rows
+
+    # Fixed-anchor worst cases, timed, and lowercased JSON.
+    worst, near = repeated_byte_stream(worst_rows)
+    worst_t = torch.from_numpy(worst.view(np.int32).copy()).to(dev)
+    timed_worst = {}
+    for label, nd in (("last", near[0]), ("first", near[4]), ("17th", near[6])):
+        pad_w, lens_w = pack_rows([nd], 1)
+        timed_worst[label] = scan_case(
+            ks, worst_t, pad_w, lens_w, 1, reps=10, plain_reps=1,
+            label=f"repeated-byte stream, 32-byte needle, other {label} byte")
+        timed_worst[label].pop("out")
+    pad_w, lens_w = pack_rows(near + [b"aaaa"], 8)
+    case = scan_case(ks, worst_t, pad_w, lens_w, 8, time_it=False,
+                     label="repeated-byte stream, 7 near misses + 'aaaa'")
+    for row, nd in enumerate(near + [b"aaaa"]):
+        bits = np.unpackbits(case["out"][row].cpu().numpy().view(np.uint8), bitorder="little")
+        if not np.array_equal(bits.astype(bool), scan_oracle(worst, nd)):
+            raise AssertionError(f"repeated-byte needle of {len(nd)} bytes differs from the oracle")
+    jchunks, jneedles = json_stream(json_rows, rng)
+    json_t = torch.from_numpy(jchunks.view(np.int32).copy()).to(dev)
+    pad_j, lens_j = pack_rows(jneedles, 8)
+    case = scan_case(ks, json_t, pad_j, lens_j, 8, label="lowercased JSON, 8 needles",
+                     reps=10, plain_reps=1)
+    for row, nd in enumerate(jneedles):
+        bits = np.unpackbits(case["out"][row].cpu().numpy().view(np.uint8), bitorder="little")
+        if not np.array_equal(bits.astype(bool), scan_oracle(jchunks, nd)):
+            raise AssertionError(f"JSON needle {nd!r}: kernel differs from the oracle")
+    del worst_t, json_t
     torch.cuda.empty_cache()
+    return {"repeated_byte": timed_worst}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -754,20 +869,23 @@ class ScanRecorder:
     shape (the key of ``kernels.scan.launch_shapes()``), the arguments of
     its first launch (the first with a real needle, when one comes), so the
     shape can be re-checked on the resident stream with the engine's own
-    needles and segment starts; and every distinct set of real needles the
-    engine scanned for (``needle_sets``)."""
+    needles and ranges; every distinct set of real needles the engine
+    scanned for (``needle_sets``); and every segment launch's requested
+    ranges and needle lengths (``segment_launches``)."""
 
     def __init__(self):
         import bloomsearch_tpu_torch.rowcache as rc
+        from bloomsearch_tpu_torch.kernels import scan as ks
 
-        self.rc = rc
+        self.rc, self.ks = rc, ks
         self.orig = {name: getattr(rc, name) for name in SCAN_MODES}
         self.args: dict[tuple, dict] = {}
         self.needle_sets: dict[bytes, dict] = {}
+        self.segment_launches: list[tuple] = []
         self.lock = threading.Lock()
 
     def _keep(self, key: tuple, **args) -> None:
-        kept = {k: np.array(v, copy=True) if isinstance(v, (np.ndarray, list)) else v
+        kept = {k: np.array(v, copy=True) if isinstance(v, np.ndarray) else v
                 for k, v in args.items()}
         real = bool(np.asarray(kept["lens"])[: kept["n_real"]].any())
         with self.lock:
@@ -783,17 +901,23 @@ class ScanRecorder:
         def stream(rows32, needles, lens, *, n_real, max_words):
             out = orig["byte_scan_stream"](rows32, needles, lens, n_real=n_real,
                                            max_words=max_words)
-            self._keep(("stream", rows32.shape[0], n_real, 0, 0, max_words),
+            self._keep(("stream", rows32.shape[0], n_real, 0, (), max_words),
                        needles=needles, lens=lens, n_real=n_real, max_words=max_words)
             return out
 
         def segments(rows32, seg_starts, needles, lens, *, n_real, max_words, seg_chunks):
             out = orig["byte_scan_segments"](rows32, seg_starts, needles, lens, n_real=n_real,
                                              max_words=max_words, seg_chunks=seg_chunks)
-            key = ("segments", len(seg_starts) * seg_chunks, n_real, len(seg_starts),
-                   seg_chunks, max_words)
-            self._keep(key, starts=list(seg_starts), needles=needles, lens=lens,
-                       n_real=n_real, max_words=max_words, seg_chunks=seg_chunks)
+            _, counts = self.ks.segment_layout(seg_starts, seg_chunks, rows32.shape[0])
+            key = ("segments", sum(counts), n_real, len(counts), tuple(counts), max_words)
+            starts = [int(v) for v in seg_starts]
+            requested = [int(v) for v in np.broadcast_to(seg_chunks, (len(starts),))]
+            self._keep(key, starts=starts, needles=needles, lens=lens, n_real=n_real,
+                       max_words=max_words, seg_chunks=requested)
+            with self.lock:
+                self.segment_launches.append((
+                    tuple(zip(starts, requested)),
+                    tuple(int(v) for v in np.asarray(lens)[:n_real])))
             return out
 
         self.rc.byte_scan_stream, self.rc.byte_scan_segments = stream, segments
@@ -815,27 +939,190 @@ def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> d
             top[key[0]] = key
     reported = {}
     for key in sorted(launched):
-        mode, G, n_real, n_segs, seg_chunks, max_words = key
+        mode, G, n_real, n_segs, counts, max_words = key
         args = recorded[key]
         if mode == "stream" and G != matrix.shape[0]:
             raise AssertionError(f"dense launch over {G} rows; the stream now has "
                                  f"{matrix.shape[0]}")
         timed_shape = key == top[mode]
+        segments = mode == "segments"
         case = scan_case(
             ks, matrix, args["needles"], args["lens"], n_real,
-            starts=[int(s) for s in args["starts"]] if mode == "segments" else None,
-            seg_chunks=seg_chunks, max_words=max_words, time_it=timed_shape,
-            reps=25 if mode == "segments" else 10, plain_reps=3 if mode == "segments" else 1,
+            starts=args["starts"] if segments else None,
+            seg_chunks=args["seg_chunks"] if segments else 0,
+            need_chunks=sum(args["seg_chunks"]) if segments else None,
+            max_words=max_words, time_it=timed_shape,
+            reps=25 if segments else 10, plain_reps=3 if segments else 1,
             label=f"main path {key} x{launched[key]}",
         )
         case.pop("out")
         if timed_shape:
             case["key"] = key
+            if segments:
+                case["args"] = args
             reported[mode] = case
     return reported
 
 
-def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7) -> dict:
+def check_segment_launches(launches: list[tuple], segments: dict) -> None:
+    """Every segment launch of the serving engine's queries read just
+    requested ranges (pinned blocks' chunk ranges, which the wrapper rounds
+    up to 32 chunks) with real needles only (no padding row)."""
+    pinned = set(segments.values())
+    for ranges, lens in launches:
+        if not set(ranges) <= pinned:
+            raise AssertionError(f"a segment launch over {ranges}: not pinned blocks' ranges")
+        if not all(lens):
+            raise AssertionError(f"a segment launch with padding rows: lengths {lens}")
+    log(f"serving: {len(launches)} query segment launches, each over requested block "
+        f"ranges only, real needles only")
+
+
+def engine_needles(needle_sets: list[dict]) -> list[bytes]:
+    """The distinct real needles the engine scanned for, in order (at
+    least 8)."""
+    real: list[bytes] = []
+    for args in needle_sets:
+        for row, n in enumerate(np.asarray(args["lens"])[: args["n_real"]]):
+            nd = bytes(np.asarray(args["needles"])[row, :n].astype(np.uint8))
+            if n and nd not in real:
+                real.append(nd)
+    if len(real) < 8:
+        raise AssertionError(f"the engine scanned for {len(real)} distinct needles, want 8")
+    return real
+
+
+def dense_sweep(ks, matrix: torch.Tensor, real: list[bytes]) -> dict:
+    """Dense mode on the resident stream at n_real in {1, 2, 4, 8} with the
+    engine's own needles, each bit-identical to the plain version and
+    timed."""
+    sweep = {}
+    for n_real in (1, 2, 4, 8):
+        padded, lens = pack_rows(real[:n_real], n_real)
+        case = scan_case(ks, matrix, padded, lens, n_real, reps=10, plain_reps=1,
+                         max_words=ks.scan_word_bucket(int(lens.max())),
+                         label=f"dense sweep {[nd.decode('latin-1') for nd in real[:n_real]]}")
+        case.pop("out")
+        sweep[n_real] = case
+    return sweep
+
+
+def old_scan_launcher(source: str):
+    """An earlier scan kernel, built from ``source``: a ``csrc/scan.cu``
+    whose ``bs_scan_launch`` takes uniform segments (starts, their count
+    and one chunk count). -> launch(rows32, padded, lens, n_real, starts,
+    seg_chunks) on the current stream."""
+    import ctypes
+
+    from bloomsearch_tpu_torch.kernels import build
+
+    path = os.path.join(tempfile.mkdtemp(prefix="bloomsearch-old-scan-"), "libold_scan.so")
+    report = build.build_library(source, path, force=True)
+    log(f"old scan kernel built from {source}: "
+        f"{[ln.strip() for ln in report.splitlines() if 'registers' in ln]}")
+    lib = ctypes.CDLL(path)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, i32, i64, p, p]
+    lib.bs_scan_launch.restype = ctypes.c_int
+
+    def launch(rows32, padded, lens, n_real, starts=(), seg_chunks=0):
+        nb = np.ascontiguousarray(padded[:n_real], dtype=np.uint8)
+        ln = np.ascontiguousarray(lens[:n_real], dtype=np.int32)
+        st = np.ascontiguousarray(starts, dtype=np.int64)
+        chunks = st.size * seg_chunks if st.size else rows32.shape[0]
+        out = torch.empty((n_real, chunks // 32), dtype=torch.int32, device=rows32.device)
+        err = lib.bs_scan_launch(
+            rows32.data_ptr(), rows32.shape[0], chunks, nb.ctypes.data, ln.ctypes.data,
+            n_real, st.ctypes.data if st.size else None, st.size, seg_chunks,
+            out.data_ptr(), torch.cuda.current_stream(rows32.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old scan kernel launch failed: cudaError {err}")
+        return out
+
+    return launch
+
+
+def range_bits(out: torch.Tensor, firsts: list[int], counts: list[int]) -> np.ndarray:
+    """The bits of the requested chunks of each range out of a segment
+    launch's packed words -> bool[n_real, sum(counts)]."""
+    bits = np.unpackbits(out.cpu().numpy().view(np.uint8), axis=1, bitorder="little")
+    return np.concatenate([bits[:, f : f + n] for f, n in zip(firsts, counts)], axis=1)
+
+
+def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[bytes],
+                           seg_args: dict, worst_rows: int = 65_536, reps: int = 10) -> dict:
+    """This scan kernel against an earlier one built from ``source``
+    (``old_scan_launcher``) on the same card, timed in turns (old, new,
+    new, old): dense over the resident stream with 1 and with 8 of the
+    engine's needles; the main path's most launched segment launch, the
+    earlier kernel at the launch shape it takes for the same ranges (pow2
+    segments of at least 512 chunks, a pow2 count padded with starts at
+    chunk 0, 8 needle rows of which the padding has length 0), both after
+    an L2 flush; and the repeated-byte stream with a 32-byte needle whose
+    last, first or 17th byte is the odd one (a fixed anchor's worst
+    cases).
+    The two kernels' bits must agree on every case."""
+    old = old_scan_launcher(source)
+    rows = matrix.shape[0]
+    flush = lambda: flush_l2(matrix.device)  # noqa: E731
+    cases = {}
+    for n_real in (1, 8):
+        padded, lens = pack_rows(real[:n_real], n_real)
+        cases[f"dense n_real={n_real}"] = (
+            lambda i, p=padded, ln=lens, n=n_real: old(matrix, p, ln, n),
+            lambda i, p=padded, ln=lens, n=n_real: ks.byte_scan_stream(
+                matrix, p, ln, n_real=n, max_words=9),
+            None, scan_bound(rows, [int(v) for v in lens], [0] * n_real), None)
+    starts, counts = seg_args["starts"], seg_args["seg_chunks"]
+    n_real = seg_args["n_real"]
+    seg = max(512, 1 << (max(counts) - 1).bit_length())
+    n_segs = 1 << (len(starts) - 1).bit_length()
+    old_starts = [min(s, rows - seg) for s in starts] + [0] * (n_segs - len(starts))
+    old_pad, old_lens = pack_rows([], 8)
+    old_pad[:n_real] = np.asarray(seg_args["needles"])[:n_real]
+    old_lens[:n_real] = np.asarray(seg_args["lens"])[:n_real]
+    read, rounded = ks.segment_layout(starts, counts, rows)
+    new_first = [int(o) + s - r for o, s, r in zip(np.cumsum([0] + rounded[:-1]), starts, read)]
+    old_first = [p * seg + s - o for p, (s, o) in enumerate(zip(starts, old_starts))]
+    cases["main-path segments"] = (
+        lambda i: old(matrix, old_pad, old_lens, 8, old_starts, seg),
+        lambda i: ks.byte_scan_segments(matrix, starts, seg_args["needles"], seg_args["lens"],
+                                        n_real=n_real, max_words=seg_args["max_words"],
+                                        seg_chunks=counts),
+        flush, scan_bound(sum(counts), [int(v) for v in old_lens[:n_real]], [0] * n_real),
+        (old_first, new_first, counts, n_real))
+    worst, near = repeated_byte_stream(worst_rows)
+    worst_t = torch.from_numpy(worst.view(np.int32).copy()).to(matrix.device)
+    for which, nd in (("last", near[0]), ("first", near[4]), ("17th", near[6])):
+        pad_w, lens_w = pack_rows([nd], 1)
+        cases[f"repeated-byte stream, 32-byte needle, other {which} byte"] = (
+            lambda i, p=pad_w, ln=lens_w: old(worst_t, p, ln, 1),
+            lambda i, p=pad_w, ln=lens_w: ks.byte_scan_stream(worst_t, p, ln, n_real=1,
+                                                              max_words=9),
+            None, scan_bound(worst_rows, [32], [0]), None)
+    result = {}
+    for label, (old_fn, new_fn, before, (bound_ms, bound_by), seg_map) in cases.items():
+        a, b = old_fn(0), new_fn(0)
+        torch.cuda.synchronize()
+        if seg_map is None:
+            same = torch.equal(a, b)
+        else:
+            of, nf, cnt, n = seg_map
+            same = np.array_equal(range_bits(a, of, cnt)[:n], range_bits(b, nf, cnt))
+        if not same:
+            raise AssertionError(f"turns {label}: the two kernels disagree")
+        ms = [event_ms(fn, reps, hide_host=True, before=before)
+              for fn in (old_fn, new_fn, new_fn, old_fn)]
+        result[label] = {"old_ms": [ms[0], ms[3]], "new_ms": [ms[1], ms[2]],
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"turns {label}: old {ms[0]:.6f}, new {ms[1]:.6f}, new {ms[2]:.6f}, "
+            f"old {ms[3]:.6f} ms; bound {bound_ms:.6f} ms ({bound_by}); outputs agree")
+    del worst_t
+    return result
+
+
+def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
+                  old_scan: str | None = None) -> dict:
     """Serving mode on the refscale dataset with bench.py's settings: every
     block pinned in the stream on the card, the needle cache off so warm
     queries scan; then the scan re-check on the resident stream and a
@@ -871,6 +1158,7 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7) -
                 raise AssertionError(f"{rc_stats['pinned_blocks']} of {n_blocks} blocks pinned")
             out["stream_device_bytes"] = rc_stats["device_bytes"]
             after_warmup = ks.launch_counts()
+            warmup_segments = len(recorder.segment_launches)
             log(f"serving warmup: {out['warmup_s']:.3f} s, {n_blocks} blocks pinned, stream "
                 f"{rc_stats['device_bytes']} device bytes, scan launches {after_warmup}, "
                 f"timeline {engine.stats().get('warmup')}")
@@ -885,6 +1173,10 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7) -
                 engine, [shapes[n] for n in ("token", "field", "field_token", "or_tree")]
             )
             log(f"serving warm queries: device busy share {out['device_busy_share']}")
+            # Up to here the launches per mode follow from the queries alone;
+            # the 16 threads' coalescing below depends on timing.
+            out["launches_sequential"] = ks.launch_counts()
+            log(f"serving sequential queries: scan launches {out['launches_sequential']}")
             run_concurrent(engine, shapes, results, out)
             out["launches"] = ks.launch_counts()
             launched = ks.launch_shapes()
@@ -896,11 +1188,18 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7) -
         out["row_cache"] = engine.stats()["row_cache"]
         log(f"serving: scan launches {out['launches']}, row cache {out['row_cache']}, "
             f"max_memory_allocated {out.get('max_memory_allocated')}")
-        log("serving launches per (mode, G, n_real, n_segs, seg_chunks, word bucket): "
+        log("serving launches per (mode, G, n_real, n_segs, range chunks, word bucket): "
             + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
         with engine._row_cache._lock:
             matrix = engine._row_cache._bucket.matrix
+            segments = dict(engine._row_cache._bucket.segments)
+        check_segment_launches(recorder.segment_launches[warmup_segments:], segments)
         out["scan_cases"] = recheck_scans(ks, matrix, launched, recorder.args)
+        real = engine_needles(list(recorder.needle_sets.values()))
+        out["dense_sweep"] = dense_sweep(ks, matrix, real)
+        if old_scan is not None:
+            out["old_scan_turns"] = turns_against_old_scan(
+                ks, old_scan, matrix, real, out["scan_cases"]["segments"]["args"])
         with engine._device_backend._lock:
             banks = [(sb.bank2d, sb.m_bits, sb.k, sb.layout, sb.num_words)
                      for sb in engine._device_backend._superbanks.values()]
@@ -1482,6 +1781,9 @@ def main(argv=None) -> int:
     parser.add_argument("--target-mb", type=int, default=1600,
                         help="refscale dataset size (the reference's 1.6 GB)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--old-scan", metavar="SOURCE",
+                        help="also time an earlier scan kernel source (a csrc/scan.cu with "
+                             "the uniform-segment interface) against this one, in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log("no CUDA device visible: this script measures the card and has no CPU mode")
@@ -1499,7 +1801,7 @@ def main(argv=None) -> int:
         done("build")
         cases = phase_kernel(dev)
         done("kernel")
-        phase_scan_kernel(dev)
+        log(json.dumps({"scan_kernel": phase_scan_kernel(dev)}))
         done("scan kernel")
         if dataset.wait() != 0:
             raise RuntimeError(f"dataset generation exited with {dataset.returncode}")
@@ -1511,7 +1813,8 @@ def main(argv=None) -> int:
     kernels = probe_phases(dev, args, cases, done)
     sidecar = tempfile.mkdtemp(prefix="bloomsearch-sidecar-")
     try:
-        serving = phase_serving(dev, args.target_mb, args.seed, sidecar)
+        serving = phase_serving(dev, args.target_mb, args.seed, sidecar,
+                                old_scan=args.old_scan)
         done("serving engine")
         scan_cases = serving.pop("scan_cases")
         resident = serving.pop("resident")

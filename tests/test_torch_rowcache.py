@@ -432,6 +432,61 @@ class TestSparseSegmentScan:
         sparse = cache.scan(blocks[17], [b"tok17_7 "])
         np.testing.assert_array_equal(dense[blocks[17][1].key][0], sparse[0])
 
+    def test_sparse_launch_reads_only_the_requested_ranges(self, monkeypatch):
+        """A sparse launch takes each requested range as it is (rounded up
+        to 32 chunks by the wrapper) and only the real needles; the choice
+        of sparse or dense per request is the JAX row cache's (a spy on its
+        ``_scan`` and ``_scan_segments``), and the candidate matrices equal
+        its own (``Pair``). On the CPU the wrappers count nothing, so the
+        spy counts each segment call as the wrapper does on the card."""
+        from bloomsearch_tpu_torch.kernels import scan as ks
+
+        cache = Pair(1 << 30, needle_cache=False)
+        blocks = {}
+        for b in range(40):
+            # Blocks of unequal sizes, so the ranges differ in length.
+            data, offs, lens = block_of(
+                [{"m": f"blk{b} tok{b}_{i} " + "x" * 90} for i in range(300 + 40 * (b % 7))])
+            blocks[b] = cache.pin((f"f{b}".encode(), 0), data, offs, lens)
+        modes = {"ref": [], "port": []}
+        for name in ("_scan", "_scan_segments"):
+            orig = getattr(cache.ref, name)
+            setattr(cache.ref, name,
+                    lambda *a, _o=orig, _n=name, **k: modes["ref"].append(_n) or _o(*a, **k))
+        orig_stream, orig_segments = rc.byte_scan_stream, rc.byte_scan_segments
+
+        def segments(rows32, seg_starts, needles, lens, *, n_real, max_words, seg_chunks):
+            modes["port"].append("_scan_segments")
+            _, counts = ks.segment_layout(seg_starts, seg_chunks, rows32.shape[0])
+            ks._count("segments", sum(counts), n_real, counts, max_words)
+            return orig_segments(rows32, seg_starts, needles, lens, n_real=n_real,
+                                 max_words=max_words, seg_chunks=seg_chunks)
+
+        monkeypatch.setattr(rc, "byte_scan_segments", segments)
+        monkeypatch.setattr(
+            rc, "byte_scan_stream",
+            lambda *a, **k: modes["port"].append("_scan") or orig_stream(*a, **k))
+        needles = [b"tok3_11 ", b"blk", b"absent", b"x"]
+        seen = []
+        for picked in ((3,), (3, 29), (0, 17, 39), (1, 2, 5, 6), (1, 2, 5, 6, 8),
+                       tuple(range(40))):
+            ks.reset_launch_counts()
+            modes["ref"].clear()
+            modes["port"].clear()
+            cache.scan_many([blocks[b] for b in picked], needles)
+            assert modes["port"] == modes["ref"], picked
+            seen += modes["port"]
+            if modes["port"] == ["_scan_segments"]:
+                segs = sorted(cache.port._bucket.segments[blocks[b][1].key] for b in picked)
+                counts = tuple(-(-n // 32) * 32 for _, n in segs)
+                assert ks.launch_shapes() == {
+                    ("segments", sum(counts), len(needles), len(segs), counts,
+                     ks.scan_word_bucket(max(map(len, needles)))): 1
+                }, picked
+        # One to four blocks scan sparse; five and all forty dense.
+        assert seen == ["_scan_segments"] * 4 + ["_scan"] * 2
+        ks.reset_launch_counts()
+
 
 class TestNeedleBitmapCache:
     def test_repeat_needle_skips_launch_until_matrix_changes(self):

@@ -216,3 +216,104 @@ def test_cuda_kernel_matches_plain_version():
             want = ks.byte_scan_plain(rows32, padded, lens, 8, starts, 512)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (lengths, n_segs)
+        for case, ranges in RANGE_CASES.items():
+            starts, counts = [s for s, _ in ranges], [n for _, n in ranges]
+            got = ks.byte_scan_segments(
+                rows32, starts, padded, lens, n_real=3, max_words=9, seg_chunks=counts)
+            want = ks.byte_scan_plain(rows32, padded, lens, 3, starts, counts)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (lengths, case)
+
+
+def jax_scan_all_bits(chunks, padded, lens, n_real) -> np.ndarray:
+    """bool[n_real, G]: the JAX package's ``scan_all`` (XLA path) over the
+    whole stream."""
+    words = jax_xla(chunks, padded, lens, n_real, ks.scan_word_bucket(int(lens.max())))
+    return unpack(words, n_real, chunks.shape[0])
+
+
+RANGE_CASES = {
+    # (first row, requested chunks) per range, over a 2048-chunk stream
+    "unequal_unaligned": [(5, 45), (700, 100), (1203, 33), (64, 7)],
+    "clamped_at_the_end": [(2030, 18), (1000, 64)],  # 2030 + 32 > 2048: reads from 2016
+    "ends_at_the_end": [(2048 - 96, 96), (0, 1)],
+    "one_range_rounded_up": [(321, 31)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANGE_CASES))
+def test_unequal_ranges_match_jax_scan_all_cut_at_the_ranges(case):
+    """Segment mode over ranges of unequal, unaligned lengths: each range
+    is rounded up to 32 chunks and clamped into the stream; its bits equal
+    the JAX package's scan_all over the same stream cut at the range, the
+    plain version over the cut rows, and (on the requested chunks) the
+    bytes oracle."""
+    G = 2048
+    needles = [b"seg", b"\x90needle", b"q", b"\xff\xfe\x80\x81\x82"]
+    chunks = planted_stream(60 + len(case), needles, G=G)
+    padded, lens = pack_needles(needles, n_rows=len(needles))
+    n_real = len(needles)
+    rows32 = torch.from_numpy(chunks.view(np.int32).copy())
+    starts = [s for s, _ in RANGE_CASES[case]]
+    counts = [n for _, n in RANGE_CASES[case]]
+    read, rounded = ks.segment_layout(starts, counts, G)
+    assert rounded == [-(-n // 32) * 32 for n in counts]
+    assert all(0 <= r <= s and r + n <= G for r, s, n in zip(read, starts, rounded))
+    got = ks.byte_scan_segments(rows32, starts, padded, lens, n_real=n_real,
+                                max_words=ks.scan_word_bucket(32), seg_chunks=counts).numpy()
+    assert got.shape == (n_real, sum(rounded) // 32)
+    bits = unpack(got, n_real, sum(rounded))
+    full = jax_scan_all_bits(chunks, padded, lens, n_real)
+    want = np.concatenate([full[:, r : r + n] for r, n in zip(read, rounded)], axis=1)
+    np.testing.assert_array_equal(bits, want)
+    cut = torch.cat([rows32[r : r + n] for r, n in zip(read, rounded)])
+    np.testing.assert_array_equal(got, ks.byte_scan_plain(cut, padded, lens, n_real).numpy())
+    offset = 0
+    for s, n, r, rn in zip(starts, counts, read, rounded):
+        first = offset + s - r  # where the requested chunks sit
+        for row, nd in enumerate(needles):
+            np.testing.assert_array_equal(
+                bits[row, first : first + n], oracle(chunks[s : s + n], nd), err_msg=repr(nd))
+        offset += rn
+
+
+@pytest.mark.parametrize("odd", ["last", "first", "middle"])
+@pytest.mark.parametrize("length", [5, 8, 31, 32])
+def test_repeated_byte_stream_worst_case(length, odd):
+    """A stream of one repeated byte and a needle of that byte with one
+    other byte (last, first or in the middle): every start passes a filter
+    on the needle's first or last 4 bytes and no chunk hits, except those
+    where the needle was planted (one at start 479, one at 480 that must
+    not hit). A needle of the byte alone hits every chunk."""
+    G = 256
+    chunks = np.full((G, ks.CHUNK_BYTES), ord("a"), dtype=np.uint8)
+    at = {"last": length - 1, "first": 0, "middle": length // 2}[odd]
+    near = b"a" * at + b"b" + b"a" * (length - 1 - at)
+    for g, s in ((3, 0), (40, 201), (77, STRIDE - 1), (78, STRIDE)):
+        chunks[g, s : s + length] = np.frombuffer(near, np.uint8)
+    needles = [near, b"a" * length]
+    padded, lens = pack_needles(needles, n_rows=2)
+    got = port_dense(chunks, padded, lens, 2, ks.scan_word_bucket(length))
+    bits = unpack(got, 2, G)
+    np.testing.assert_array_equal(bits, jax_scan_all_bits(chunks, padded, lens, 2))
+    assert bits[0].nonzero()[0].tolist() == [3, 40, 77]
+    assert bits[1].all()
+    for row, nd in enumerate(needles):
+        np.testing.assert_array_equal(bits[row], oracle(chunks, nd))
+
+
+@pytest.mark.parametrize(
+    "starts, counts",
+    [
+        ([0] * 5, 32),  # more than 4 ranges
+        ([0, 64], [32]),  # a count missing
+        ([0], [0]),  # an empty range
+        ([0], [65]),  # rounds to 96 > the 64-row stream
+    ],
+)
+def test_segment_layout_rejects_what_the_kernel_does_not_take(starts, counts):
+    rows = torch.zeros((64, 128), dtype=torch.int32)
+    padded, lens = pack_needles([b"abc"], n_rows=1)
+    with pytest.raises(ValueError):
+        ks.byte_scan_segments(rows, starts, padded, lens, n_real=1, max_words=2,
+                              seg_chunks=counts)
