@@ -852,7 +852,10 @@ def kernel_bench(device) -> dict:
 
 
 def kernel_record(m: dict) -> dict:
-    """T1's keys from a measurement of ``tools/exp_kernel_floor.measure``."""
+    """T1's keys from a measurement of ``tools/exp_kernel_floor.measure``:
+    K1's time per launch and probes/s, with K1f (K1's launch shape, one warp
+    a term and 32 columns, and its loads without the bit math) beside it,
+    each also as a share of its own bound."""
     per_launch_s = m["probe_ms"] / 1e3
     return {
         "kernel_per_launch_us": round(per_launch_s * 1e6, 3),
@@ -861,11 +864,14 @@ def kernel_record(m: dict) -> dict:
         # groups on this card): floor = 3.35e12 B/s (H100 SXM datasheet) /
         # (k * 4 B) probes/s.
         "kernel_hbm_floor_probes_per_sec": round(3.35e12 / (m["k"] * 4)),
-        # Measured beside it: K1f, K1's launch shape and loads without the
-        # probe math, and a sequential reduction over the same bank.
+        # Measured beside it: K1f, K1's launch shape (one warp a term and 32
+        # columns) and loads without the probe math, each as a share of its
+        # own bound, and a sequential reduction over the same bank.
         "kernel_floor_per_launch_us": round(m["floor_ms"] * 1e3, 3),
         "kernel_floor_probes_per_sec_equiv": m["floor_probes_per_sec"],
         "kernel_over_floor": round(m["probe_over_floor"], 3),
+        "kernel_share_of_bound": round(m["probe_share_of_bound"], 4),
+        "kernel_floor_share_of_bound": round(m["floor_share_of_bound"], 4),
         "kernel_stream_floor_gbps": round(m["stream_gbps"], 1),
         "kernel_shape": {"rows": m["rows"], "C": m["C"], "T": m["T"], "k": m["k"]},
     }

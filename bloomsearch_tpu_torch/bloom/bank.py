@@ -80,14 +80,6 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _pad_terms(n: int) -> int:
-    """Bucket the term count to a power of two (the launch shape ladder)."""
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
 # Combined-launch caps: the probe combiner drains at most this many members
 # / total terms / total CNF clauses per launch; undrained requests lead the
 # next launch. A SINGLE request above a cap is split / host-evaluated (see
@@ -453,19 +445,18 @@ class DeviceProbeBackend:
         for bank2d in snapshots:
             if bank2d is None:
                 continue
+            zero = np.zeros(1, dtype=np.int32)  # host probe arrays, as a query's
             if mesh is not None:
-                zero = np.zeros(1, dtype=np.int32)
                 launches = (
                     lambda: sharded_query_step(mesh, bank2d, zero, zero, 1, 1, 1),
                     lambda: sharded_probe_clauses(mesh, bank2d, zero, zero, [1], [1], 1, 1),
                     lambda: sharded_probe_packed(mesh, bank2d, zero, zero, 1, 1),
                 )
             else:
-                probes = torch.zeros((2, 1), dtype=torch.int32, device=self.device)
                 launches = (
-                    lambda: probe_reduce_and_pack(bank2d, probes[0], probes[1], 1, 1, 1),
-                    lambda: probe_clauses_pack(bank2d, probes[0], probes[1], 1, 1, [1], [1]),
-                    lambda: probe_and_pack(bank2d, probes[0], probes[1], 1, 1),
+                    lambda: probe_reduce_and_pack(bank2d, zero, zero, 1, 1, 1),
+                    lambda: probe_clauses_pack(bank2d, zero, zero, 1, 1, [1], [1]),
+                    lambda: probe_and_pack(bank2d, zero, zero, 1, 1),
                 )
             for launch in launches:
                 if yield_to is not None:
@@ -570,9 +561,10 @@ class DeviceProbeBackend:
         acquires the lock next launches EVERYTHING queued as one combined
         term batch and distributes the slices. Single queries see zero added
         latency; concurrent queries share launches, so the per-launch cost
-        (launch, probe upload, bitmap fetch) amortizes across queries.
+        (launch, bitmap fetch) amortizes across queries. A launch takes the
+        batch's real term count; the probe arrays travel in its parameters.
 
-        Shape-space discipline: NO launch exceeds the caps (Tp<=16, at most
+        Shape-space discipline: NO launch exceeds the caps (T<=16, at most
         16 clauses and 16 members), the JAX package's combiner caps. Requests
         with T > the term cap split into <=16-term
         chunks recombined host-side (AND for flat-AND; full-bitmap concat +
@@ -694,23 +686,11 @@ class DeviceProbeBackend:
         self.launches += 1
         self.batched_requests += len(batch)
         total_t = sum(r.T for r in batch)
-        Tp = _pad_terms(total_t)
-        flat_rows = np.concatenate([r.flat_rows for r in batch])
-        shifts = np.concatenate([r.shifts for r in batch])
-        if Tp != total_t:
-            pad = (Tp - total_t) * k
-            flat_rows = np.pad(flat_rows, (0, pad))
-            shifts = np.pad(shifts, (0, pad))
+        # Host arrays: the kernel takes them in its launch parameters, on
+        # every shard's device alike.
+        flat_rows = np.concatenate([r.flat_rows for r in batch]).astype(np.int32, copy=False)
+        shifts = np.concatenate([r.shifts for r in batch]).astype(np.int32, copy=False)
         mesh = self.mesh
-        if mesh is None:
-            # One host-to-device copy for both probe arrays.
-            probes = torch.from_numpy(
-                np.stack([flat_rows, shifts]).astype(np.int32)
-            ).to(bank2d.device)
-            rows_dev, shifts_dev = probes[0], probes[1]
-        else:
-            # The sharded wrappers copy them once to each shard's device.
-            rows_dev, shifts_dev = flat_rows.astype(np.int32), shifts.astype(np.int32)
 
         # Fusion ladder:
         # 1. Solo flat-AND: the cheapest fully fused reduction.
@@ -723,20 +703,18 @@ class DeviceProbeBackend:
             r.clause_mask is not None for r in batch
         )
         if solo_fused:
-            # Padding terms (t >= total_t) are outside the AND.
             if mesh is None:
                 packed = probe_reduce_and_pack(
-                    bank2d, rows_dev, shifts_dev, Tp, k, (1 << total_t) - 1
+                    bank2d, flat_rows, shifts, total_t, k, (1 << total_t) - 1
                 )
             else:
                 packed, _total = sharded_query_step(
-                    mesh, bank2d, rows_dev, shifts_dev, (1 << total_t) - 1, Tp, k
+                    mesh, bank2d, flat_rows, shifts, (1 << total_t) - 1, total_t, k
                 )
                 packed = packed[None, :]
         elif all_clauses:
             # One output row per member: bit t of a clause is the batch's
-            # term t, bit i of a member is the batch's clause i. Padding
-            # terms belong to no clause.
+            # term t, bit i of a member is the batch's clause i.
             clause_bits: list[int] = []
             member_bits: list[int] = []
             t0 = 0
@@ -750,16 +728,16 @@ class DeviceProbeBackend:
                 t0 += r.T
             if mesh is None:
                 packed = probe_clauses_pack(
-                    bank2d, rows_dev, shifts_dev, Tp, k, clause_bits, member_bits
+                    bank2d, flat_rows, shifts, total_t, k, clause_bits, member_bits
                 )
             else:
                 packed = sharded_probe_clauses(
-                    mesh, bank2d, rows_dev, shifts_dev, clause_bits, member_bits, Tp, k
+                    mesh, bank2d, flat_rows, shifts, clause_bits, member_bits, total_t, k
                 )
         elif mesh is None:
-            packed = probe_and_pack(bank2d, rows_dev, shifts_dev, Tp, k)
+            packed = probe_and_pack(bank2d, flat_rows, shifts, total_t, k)
         else:
-            packed = sharded_probe_packed(mesh, bank2d, rows_dev, shifts_dev, Tp, k)
+            packed = sharded_probe_packed(mesh, bank2d, flat_rows, shifts, total_t, k)
         # int32 words (on the host already on a mesh); the bytes are the
         # uint32 bitmap.
         packed_host = packed.cpu().numpy().view(np.uint32)

@@ -19,7 +19,9 @@ import torch
 def _example_probe_inputs(device, num_blocks: int = 1024, t: int = 4):
     """Synthetic bank + probe batch at the default block bloom params: the
     reference's draws from the same seed (its bank has the 8-row padding,
-    which no probe reads, so the port drops it)."""
+    which no probe reads, so the port drops it). The bank goes to
+    ``device``; the probe arrays stay host tensors, as the kernel takes them
+    in its launch parameters."""
     from .bloom import BloomParams
 
     params = BloomParams(10_000, 0.001)
@@ -29,8 +31,8 @@ def _example_probe_inputs(device, num_blocks: int = 1024, t: int = 4):
     bank = rng.integers(0, 2**32, size=(rows8, num_blocks), dtype=np.uint32)[: 3 * w]
     row_idx = rng.integers(0, 3 * w, size=t * params.k).astype(np.int32)
     shift = rng.integers(0, 32, size=t * params.k).astype(np.int32)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
-    return params, to(bank), to(row_idx), to(shift), t
+    bank = torch.from_numpy(np.ascontiguousarray(bank).view(np.int32)).to(device)
+    return params, bank, torch.from_numpy(row_idx), torch.from_numpy(shift), t
 
 
 def entry(device="cuda"):

@@ -5,13 +5,26 @@ The CUDA kernel (``csrc/probe.cu``) replaces the JAX package's Pallas probe
 around it (``probe_and_pack``, ``probe_reduce_and_pack``,
 ``probe_clauses_pack``). It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, and bound with
-``ctypes``.
+``ctypes``. It runs one warp for each (term, 32-column word), with each
+term's K loads in flight together, and blocks of at least 4 warps
+(``BLOCK_WARPS`` in ``csrc/probe.cu``) where the bank is wide enough.
 
 Each wrapper takes the bank ``int32[R, C]`` and the flat probe arrays
-``row_idx``/``shift`` ``int32[T*K]`` on one device:
+``row_idx``/``shift`` ``int32[T*K]``. The probe arrays are host data, numpy
+arrays or CPU tensors, whatever the bank's device:
 
-- a CUDA tensor launches the kernel on the current stream, or raises;
-- a CPU tensor runs the plain PyTorch version in this module.
+- a bank on CUDA launches the kernel on the current stream, with the probe
+  arrays in the launch's parameters (no host-to-device copy), or raises;
+- a bank on the CPU runs the plain PyTorch version in this module;
+- a probe array on any other device raises ``ValueError`` (it is never
+  copied back to the host behind the caller's back).
+
+One launch takes at most ``MAX_TERMS`` (32) terms and ``MAX_PROBES`` (6,400)
+probes T*K: the probes travel in one kernel parameter struct, and 6,400 of
+them (four bytes of row and one of shift each, plus 16 spare) with the
+epilogue masks fill 32,392 of the 32,764 bytes that CUDA 12.1 and later
+allow a launch's parameters. Rows are any int32; a row outside [0, R) reads
+0.
 
 Outputs are packed ``int32[rows, C/32]`` words: bit i of word w is column
 32w+i (the JAX package's ``pack_bitmap`` contract, read as uint32 on the
@@ -19,11 +32,11 @@ host). Clause and member masks are bit masks: bit t of ``clause_bits[i]``
 puts term t in clause i, bit i of ``member_bits[m]`` puts clause i in
 member m.
 
-``probe_floor`` (K1f) is the probe's access-pattern floor: the same launch
-shape and loads with an OR in place of the bit math, written unpacked as
-``int32[T, C]``. It replaces the Pallas floor kernel of
-``scripts/exp_kernel_floor.py`` and is timed beside K1 by
-``tools/exp_kernel_floor.py``.
+``probe_floor`` (K1f) is the probe's access-pattern floor: K1's launch
+shape (its warps and blocks, its by-value probes), loads and row check with
+an OR in place of the bit math, written unpacked as ``int32[T, C]``. It
+replaces the Pallas floor kernel of ``scripts/exp_kernel_floor.py`` and is
+timed beside K1 by ``tools/exp_kernel_floor.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import os
 import threading
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import build
@@ -41,10 +55,10 @@ SOURCE = os.path.join(build.CSRC_DIR, "probe.cu")
 LIBRARY = os.path.join(build.BUILD_DIR, "libbs_probe.so")
 
 MODE_PACK, MODE_REDUCE, MODE_CLAUSES = 0, 1, 2
-MAX_TERMS = 32  # the term results live in one 32-bit register per column
+MAX_TERMS = 32  # a block holds the warps of every term of its words: <= 32 warps
 MAX_CLAUSES = 32
 MAX_MEMBERS = 32
-MAX_PROBES = 6144  # T*K row indices + shifts must fit 48 KB of shared memory
+MAX_PROBES = 6400  # T*K: csrc/probe.cu CAP_MAX, the kernel's parameters (module doc)
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -132,6 +146,18 @@ def build_library(force: bool = False) -> str:
     return build.build_library(SOURCE, LIBRARY, force)
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a library built from ``csrc/probe.cu`` and declare its C entry
+    points."""
+    lib = ctypes.CDLL(path)
+    p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+    lib.bs_probe_launch.argtypes = [p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p]
+    lib.bs_probe_launch.restype = ctypes.c_int
+    lib.bs_probe_floor_launch.argtypes = [p, i64, i64, p, p, i32, i32, p, p]
+    lib.bs_probe_floor_launch.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built at first use and bound with ctypes."""
     global _lib
@@ -140,38 +166,39 @@ def library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             build_library()
-            lib = ctypes.CDLL(LIBRARY)
-            p, i64, i32, u32 = (
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32,
-            )
-            lib.bs_probe_launch.argtypes = [
-                p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p,
-            ]
-            lib.bs_probe_launch.restype = ctypes.c_int
-            lib.bs_probe_floor_launch.argtypes = [p, i64, i64, p, p, i32, i32, p, p]
-            lib.bs_probe_floor_launch.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(LIBRARY)
     return _lib
 
 
 # -- argument checks --------------------------------------------------------
 
 
-def _check(bank: torch.Tensor, row_idx: torch.Tensor, shift: torch.Tensor,
-           T: int, K: int) -> None:
+def _check(bank: torch.Tensor, row_idx, shift, T: int, K: int) -> tuple:
+    """Check the arguments -> (row_idx, shift) as host int32[T*K] arrays
+    (numpy views of CPU tensors, no copy)."""
     if bank.dim() != 2 or bank.dtype != torch.int32 or not bank.is_contiguous():
         raise ValueError("bank must be a contiguous int32[R, C] tensor")
     if bank.shape[1] % 32:
         raise ValueError(f"bank columns must be a multiple of 32, got {bank.shape[1]}")
-    for name, t in (("row_idx", row_idx), ("shift", shift)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32[T*K] tensor")
-        if t.device != bank.device:
-            raise ValueError(f"{name} is on {t.device}, bank on {bank.device}")
-        if t.shape[0] != T * K:
-            raise ValueError(f"{name} has {t.shape[0]} entries, want T*K = {T * K}")
     if not 1 <= T <= MAX_TERMS or K < 1 or T * K > MAX_PROBES:
-        raise ValueError(f"unsupported probe shape T={T} K={K}")
+        raise ValueError(f"unsupported probe shape T={T} K={K}: at most {MAX_TERMS} terms "
+                         f"and {MAX_PROBES} probes T*K a launch")
+    host = []
+    for name, a in (("row_idx", row_idx), ("shift", shift)):
+        if isinstance(a, torch.Tensor):
+            if a.device.type != "cpu":
+                raise ValueError(f"{name} is on {a.device}: the probe arrays are host data "
+                                 "(numpy or CPU tensors), passed in the launch's parameters")
+            if a.dtype != torch.int32:
+                raise ValueError(f"{name} must be int32, got {a.dtype}")
+            a = a.numpy()
+        a = np.asarray(a)
+        if a.dtype != np.int32 or a.ndim != 1:
+            raise ValueError(f"{name} must be a host int32[T*K] array")
+        if a.shape[0] != T * K:
+            raise ValueError(f"{name} has {a.shape[0]} entries, want T*K = {T * K}")
+        host.append(np.ascontiguousarray(a))
+    return tuple(host)
 
 
 def _bits(values: Sequence[int], limit: int, what: str) -> tuple:
@@ -181,8 +208,11 @@ def _bits(values: Sequence[int], limit: int, what: str) -> tuple:
     return (ctypes.c_uint32 * max(len(values), 1))(*values), len(values)
 
 
-def _launch(bank, row_idx, shift, T, K, mode, out_rows, and_bits=0,
-            clause_bits=(), member_bits=()) -> torch.Tensor:
+def _launch(bank, row_idx: np.ndarray, shift: np.ndarray, T, K, mode, out_rows,
+            and_bits=0, clause_bits=(), member_bits=()) -> torch.Tensor:
+    """One kernel launch on the bank's device with the host probe arrays in
+    its parameters -> the packed int32[out_rows, C/32] output. Counts
+    nothing (the wrappers count)."""
     if bank.device.type != "cuda":
         raise ValueError(f"the probe kernel runs on CUDA tensors, got {bank.device}")
     R, C = bank.shape
@@ -193,7 +223,7 @@ def _launch(bank, row_idx, shift, T, K, mode, out_rows, and_bits=0,
         out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
         stream = torch.cuda.current_stream(bank.device).cuda_stream
         err = lib.bs_probe_launch(
-            bank.data_ptr(), R, C, row_idx.data_ptr(), shift.data_ptr(), T, K, mode,
+            bank.data_ptr(), R, C, row_idx.ctypes.data, shift.ctypes.data, T, K, mode,
             int(and_bits) & 0xFFFFFFFF, clauses, n_clauses, members, n_members,
             out.data_ptr(), stream,
         )
@@ -205,14 +235,27 @@ def _launch(bank, row_idx, shift, T, K, mode, out_rows, and_bits=0,
 # -- plain versions (the CPU path and the kernel's reference) ----------------
 
 
+def _probed_words(bank: torch.Tensor, row_idx: torch.Tensor, row_mask: int) -> torch.Tensor:
+    """-> int32[T*K, C]: row ``row_idx[p] & row_mask`` of the bank for each
+    probe p, zeros for a row outside [0, R) (the kernel's row check)."""
+    R = bank.shape[0]
+    rows = row_idx.long()
+    inside = (rows >= 0) & (rows < R)
+    if R == 0:
+        return bank.new_zeros((rows.shape[0], bank.shape[1]))
+    words = bank.index_select(0, torch.where(inside, rows & row_mask, 0))
+    return torch.where(inside[:, None], words, 0)
+
+
 def probe_plain(bank: torch.Tensor, row_idx: torch.Tensor, shift: torch.Tensor,
                 T: int, K: int) -> torch.Tensor:
-    """-> bool[T, C]: term t matches column c iff all K probed bits are set.
+    """-> bool[T, C]: term t matches column c iff all K probed bits are set
+    (bit ``shift & 31``; a row outside the bank reads 0, as in the kernel).
 
     ``>>`` on int32 is arithmetic, but ``& 1`` keeps exactly bit ``shift``,
     so shift 31 on a word with the top bit set still reads 1."""
-    rows = bank.index_select(0, row_idx.long())  # [T*K, C]
-    bits = (rows >> shift[:, None]) & 1
+    rows = _probed_words(bank, row_idx, -1)  # [T*K, C]
+    bits = (rows >> (shift & 31)[:, None]) & 1
     return (bits != 0).view(T, K, -1).all(dim=1)
 
 
@@ -221,11 +264,7 @@ def probe_floor_plain(bank: torch.Tensor, row_idx: torch.Tensor, T: int,
     """-> int32[T, C]: the OR over j < K of row ``row_idx[t*K + j] & ~7``
     (row 0 of the probe's aligned 8-row group); a row outside the bank
     reads 0, as in the kernel."""
-    R = bank.shape[0]
-    rows = row_idx.long()
-    inside = (rows >= 0) & (rows < R)
-    words = bank.index_select(0, torch.where(inside, rows & ~7, 0))  # [T*K, C]
-    words = torch.where(inside[:, None], words, 0).view(T, K, -1)
+    words = _probed_words(bank, row_idx, ~7).view(T, K, -1)
     out = words[:, 0].clone()
     for j in range(1, K):
         out |= words[:, j]
@@ -271,12 +310,16 @@ def clauses_plain(match: torch.Tensor, clause_bits: Sequence[int],
 # -- wrappers ---------------------------------------------------------------
 
 
+def _plain_match(bank, row_idx, shift, T, K) -> torch.Tensor:
+    return probe_plain(bank, torch.from_numpy(row_idx), torch.from_numpy(shift), T, K)
+
+
 def probe_and_pack(bank, row_idx, shift, T: int, K: int) -> torch.Tensor:
     """-> int32[T, C/32]: the packed match rows of the T terms."""
-    _check(bank, row_idx, shift, T, K)
+    rows, shifts = _check(bank, row_idx, shift, T, K)
     if bank.device.type == "cpu":
-        return pack_bitmap_plain(probe_plain(bank, row_idx, shift, T, K))
-    out = _launch(bank, row_idx, shift, T, K, MODE_PACK, T)
+        return pack_bitmap_plain(_plain_match(bank, rows, shifts, T, K))
+    out = _launch(bank, rows, shifts, T, K, MODE_PACK, T)
     _count("pack", bank.shape[1], T, T)
     return out
 
@@ -285,11 +328,11 @@ def probe_reduce_and_pack(bank, row_idx, shift, T: int, K: int,
                           and_bits: int) -> torch.Tensor:
     """-> int32[1, C/32]: columns where every term in ``and_bits`` matches
     (terms outside it count as true)."""
-    _check(bank, row_idx, shift, T, K)
+    rows, shifts = _check(bank, row_idx, shift, T, K)
     if bank.device.type == "cpu":
-        match = probe_plain(bank, row_idx, shift, T, K)
+        match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(reduce_and_plain(match, and_bits))
-    out = _launch(bank, row_idx, shift, T, K, MODE_REDUCE, 1, and_bits=and_bits)
+    out = _launch(bank, rows, shifts, T, K, MODE_REDUCE, 1, and_bits=and_bits)
     _count("reduce_and", bank.shape[1], T, 1)
     return out
 
@@ -298,14 +341,14 @@ def probe_clauses_pack(bank, row_idx, shift, T: int, K: int,
                        clause_bits: Sequence[int],
                        member_bits: Sequence[int]) -> torch.Tensor:
     """-> int32[M, C/32]: the CNF survivors of each of the M members."""
-    _check(bank, row_idx, shift, T, K)
+    rows, shifts = _check(bank, row_idx, shift, T, K)
     if len(clause_bits) > MAX_CLAUSES or len(member_bits) > MAX_MEMBERS:
         raise ValueError("too many clauses or members for one launch")
     if bank.device.type == "cpu":
-        match = probe_plain(bank, row_idx, shift, T, K)
+        match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(clauses_plain(match, clause_bits, member_bits))
     out = _launch(
-        bank, row_idx, shift, T, K, MODE_CLAUSES, len(member_bits),
+        bank, rows, shifts, T, K, MODE_CLAUSES, len(member_bits),
         clause_bits=clause_bits, member_bits=member_bits,
     )
     _count("clauses", bank.shape[1], T, len(member_bits), len(clause_bits))
@@ -318,16 +361,17 @@ def probe_floor(bank, row_idx, shift, T: int, K: int,
     (``probe_floor_plain``): K1's launch shape and loads with no probe math.
 
     It replaces the Pallas floor kernel of ``scripts/exp_kernel_floor.py``.
-    ``shift`` is staged as K1 stages it and never read. ``out``, an int32[T,
-    C] tensor on the bank's device, is written and returned instead of a new
-    tensor, so a chain of launches can share one output."""
-    _check(bank, row_idx, shift, T, K)
+    ``shift`` travels in the parameters as K1's does and is never read.
+    ``out``, an int32[T, C] tensor on the bank's device, is written and
+    returned instead of a new tensor, so a chain of launches can share one
+    output."""
+    rows, shifts = _check(bank, row_idx, shift, T, K)
     R, C = bank.shape
     if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (T, C)
                             or not out.is_contiguous() or out.device != bank.device):
         raise ValueError(f"out must be a contiguous int32[{T}, {C}] tensor on {bank.device}")
     if bank.device.type == "cpu":
-        result = probe_floor_plain(bank, row_idx, T, K)
+        result = probe_floor_plain(bank, torch.from_numpy(rows), T, K)
         return result if out is None else out.copy_(result)
     if bank.device.type != "cuda":
         raise ValueError(f"the probe kernel runs on CUDA tensors, got {bank.device}")
@@ -337,7 +381,7 @@ def probe_floor(bank, row_idx, shift, T: int, K: int,
             out = torch.empty((T, C), dtype=torch.int32, device=bank.device)
         stream = torch.cuda.current_stream(bank.device).cuda_stream
         err = lib.bs_probe_floor_launch(
-            bank.data_ptr(), R, C, row_idx.data_ptr(), shift.data_ptr(), T, K,
+            bank.data_ptr(), R, C, rows.ctypes.data, shifts.ctypes.data, T, K,
             out.data_ptr(), stream,
         )
     if err != 0:

@@ -17,7 +17,9 @@ the single-device layout.
 The sharded wrappers have no kernel body of their own. Each launches the
 port's existing kernel (``csrc/probe.cu`` in the epilogue's mode, or
 ``csrc/scan.cu`` in dense mode) on every shard, on that shard's device and
-its current stream, before it copies anything back; then it copies each
+its current stream, before it copies anything back (the probe arrays and
+the needles are host arrays that travel in each launch's parameters, so
+nothing is copied to the cards first); then it copies each
 shard's packed bitmap to the host and joins them along the word axis in
 shard order. That join is bit-for-bit the unsharded kernel's output because
 every shard is a contiguous range whose width is a multiple of 32 (128·n
@@ -311,20 +313,6 @@ def _count(name: str, shards: tuple) -> None:
             _launches[name] += 1
 
 
-def _on_devices(shards: tuple, *arrays) -> dict:
-    """{device: tuple of int32 tensors}: each array copied once to each
-    distinct shard device."""
-    out = {}
-    for dev in dict.fromkeys(s.device for s in shards):
-        out[dev] = tuple(
-            (a if isinstance(a, torch.Tensor) else torch.from_numpy(
-                np.ascontiguousarray(a, dtype=np.int32)
-            )).to(dev, dtype=torch.int32).contiguous()
-            for a in arrays
-        )
-    return out
-
-
 def _to_host(parts: list) -> list:
     """Each shard's bitmap (every shard launched first) to the host. The
     copies from every card are queued before any is waited for, into
@@ -351,9 +339,9 @@ def _join(parts: list) -> torch.Tensor:
 
 
 def _probe_shards(bank: Sharded, row_idx, shift, launch) -> list:
-    shards = _shards(bank)
-    probes = _on_devices(shards, row_idx, shift)
-    return [launch(s, *probes[s.device]) for s in shards]
+    """Launch on every shard with the same host probe arrays, which travel
+    in each launch's parameters (no copy to any card)."""
+    return [launch(s, row_idx, shift) for s in _shards(bank)]
 
 
 def sharded_probe_packed(mesh: Mesh, bank2d: Sharded, row_idx, shift, T: int,

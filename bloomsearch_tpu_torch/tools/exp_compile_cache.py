@@ -61,7 +61,7 @@ out = {}
 dev = torch.device("cuda", 0)
 out["cuda_init_s"] = synced(lambda: torch.zeros(1, device=dev))
 bank = torch.zeros((64, 512), dtype=torch.int32, device=dev)
-rows = torch.arange(8, dtype=torch.int32, device=dev)
+rows = np.arange(8, dtype=np.int32)  # host probe arrays, in the launch's parameters
 rows32 = torch.zeros((512, 128), dtype=torch.int32, device=dev)
 needles = np.zeros((8, 32), np.int32)
 needles[0, :4] = list(b"abcd")

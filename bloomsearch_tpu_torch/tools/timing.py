@@ -4,8 +4,8 @@ short and a long chain of launches.
 The JAX package timed its kernels with a ``lax.scan`` of N launches behind an
 ``optimization_barrier``, compiled into one program (``bench.py:959-986``,
 ``scripts/exp_kernel_floor.py:71-100``). Here each chain is captured once in
-a CUDA graph, each launch reading its own probe arrays (one row of an
-``[N, T*K]`` tensor uploaded before the capture), and the graph is replayed
+a CUDA graph, each launch with its own probe arrays (host arrays that the
+capture keeps in that launch's parameters), and the graph is replayed
 between CUDA events; a chain's time is the best of ``reps`` replays. Launches
 on one stream run one after another, so a chain's launches never overlap,
 and a replay enqueues the whole chain at once, so the host's launch cost

@@ -3,18 +3,22 @@
 
 Usage, from the repository root:
 
-    python3 chip_smoke.py [--target-mb 1600] [--seed 0] [--old-scan SOURCE]
+    python3 chip_smoke.py [--target-mb 1600] [--seed 0] [--old-probe SOURCE]
+                          [--old-scan SOURCE]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), the torch device,
    and the port's native host library (g++ builds it at first use);
 2. build: the probe and scan kernel libraries, compiled together (one nvcc
-   each) for sm_90a, with their register and shared-memory reports;
+   each) for sm_90a, with nvcc's version and the register and
+   shared-memory reports; the probe library's SASS (cuobjdump) must put
+   16 global loads in flight before it uses the first;
 3. kernel: the block-bloom probe kernel in its three epilogues against its
-   plain PyTorch version on the card at the refscale bank's width for every
-   padded term count T in {1, 2, 4, 8, 16}, bit-identical, with CUDA-event
-   times beside the memory bound;
+   plain PyTorch version on the card at the refscale bank's width for term
+   counts T in {1, 2, 3, 4, 5, 8, 12, 16} and at the bench shape,
+   bit-identical, the probe arrays on the host as the engine passes them,
+   with CUDA-event times beside the memory bound;
 4. scan kernel: the stream byte scan in dense and segment mode against its
    plain version, bit-identical: random bytes including >= 0x80, needles of
    10 lengths at every start alignment, the start-479/480 boundary, padding
@@ -33,6 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. main-path shapes: the probe kernel against its plain version at every
    shape (C, T, members, clauses) the engine phase launched and phase 3 did
    not cover; each epilogue's most launched shape is timed and reported;
+   with ``--old-probe`` an earlier probe kernel (one that reads its probe
+   arrays from the card) against this one in turns at every phase-3 shape,
+   each epilogue's most launched shape and the bench shape
+   (``turns_against_old_probe``);
 7. serving engine: the same dataset in serving mode (the row stream pinned
    on the card, a restart sidecar in a temporary directory), the same
    queries checked against the host-probe engine, the scan counters reset
@@ -100,6 +108,7 @@ REFSCALE_ROWS = 1_347_900  # 3 keyspaces x 449,300 words (1M items, FPR 0.001)
 BENCH_ROWS = 13_479  # 3 x 4,493 words (10,000 items, FPR 0.001)
 K = 10
 PROBE_SOURCE = "bloomsearch_tpu_torch/csrc/probe.cu"
+PROBE_LOAD_GROUP = 16  # csrc/probe.cu LOAD_GROUP: loads a term has in flight at once
 SCAN_SOURCE = "bloomsearch_tpu_torch/csrc/scan.cu"
 PALLAS = "bloomsearch_tpu/bloom/pallas_kernels.py"
 EPILOGUES = {
@@ -122,6 +131,7 @@ MESH_WRAPPERS = {
     "sharded_scan_all_rows": (SCAN_SOURCE, f"{MESH_PY}:330"),
 }
 MESH_SHARDS = 4
+PHASE3_T = (1, 2, 3, 4, 5, 8, 12, 16)  # K1's term counts at the refscale width
 SCAN_LENGTHS = (1, 2, 3, 4, 5, 7, 8, 15, 31, 32)
 SEG_CHUNKS = 16_384  # a refscale block is about 15,000 chunks
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2 cache
@@ -163,10 +173,12 @@ def native_compile_command() -> list[str]:
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc process each, started together."""
+    """Both kernel libraries, one nvcc process each, started together;
+    then the SASS check of K1's loads in flight."""
     from bloomsearch_tpu_torch.kernels import probe as pk
     from bloomsearch_tpu_torch.kernels import scan as ks
 
+    log(f"build: {nvcc_version()}")
     results: dict[str, tuple] = {}
 
     def build(source: str, module) -> None:
@@ -189,6 +201,56 @@ def phase_build() -> None:
         log(f"build: {source} with nvcc sm_90a in {seconds:.2f} s; {regs}")
     pk.library()
     ks.library()
+    # K1's term loads must all be in flight before the first is used.
+    in_flight = sass_loads_in_flight(pk.LIBRARY)
+    log(f"build: {PROBE_SOURCE} SASS, global loads in flight before the first use of one "
+        f"(cuobjdump -sass): {json.dumps(in_flight)}")
+    for fn, n in in_flight.items():
+        if n < PROBE_LOAD_GROUP:
+            raise AssertionError(f"{fn}: only {n} loads in flight, want {PROBE_LOAD_GROUP}")
+
+
+def nvcc_version() -> str:
+    from bloomsearch_tpu_torch.kernels import build
+
+    nvcc = build.nvcc_command("", "")[0]
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[-1] if out.returncode == 0 else out.stderr.strip()
+
+
+def sass_loads_in_flight(library: str) -> dict:
+    """{kernel function: the most global loads (LDG) it sends before an
+    instruction touches the register of one of them}, from ``cuobjdump
+    -sass`` of ``library``."""
+    import re
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out: dict = {}
+    fn, pending, run = None, set(), 0
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn, pending, run = m.group(1), set(), 0
+            out[fn] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);", line)
+        if fn is None or not m:
+            continue
+        op, operands = m.group(1), m.group(2)
+        regs = set(re.findall(r"\bR\d+\b", operands))
+        if op.startswith("LDG"):
+            dst = re.match(r"\s*(R\d+)", operands)
+            if regs & pending:
+                pending, run = set(), 0
+            if dst:
+                pending.add(dst.group(1))
+            run += 1
+            out[fn] = max(out[fn], run)
+        elif regs & pending:
+            pending, run = set(), 0
+    return {name: n for name, n in out.items() if "probe" in name}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -245,36 +307,60 @@ def shape_key(name: str, C: int, T: int, clauses: int = 16, members: int = 16) -
     return (counter, C, T, rows, clauses if counter == "clauses" else 0)
 
 
-def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
-                clauses: int = 16, members: int = 16, time_it: bool = True) -> dict:
-    """Hold one epilogue against its plain version at one shape and time
-    both (``time_it``). Each launch probes fresh random rows, so the rows
-    come from device memory as a query's would, not from the L2 cache."""
-    R, C = bank.shape
-    reps = reps if time_it else 3
-    sets = [
-        (
-            torch.randint(0, R, (T * K,), generator=gen, device=dev, dtype=torch.int32),
-            torch.randint(0, 32, (T * K,), generator=gen, device=dev, dtype=torch.int32),
-        )
-        for _ in range(reps + 1)
-    ]
+def probe_sets(gen: torch.Generator, R: int, T: int, n: int, k: int = K) -> list[tuple]:
+    """``n`` random probe sets (host int32[T*k] rows below R and shifts),
+    drawn from the torch generator ``gen``; bit 31 among the shifts."""
+    sets = []
+    for _ in range(n):
+        rows = torch.randint(0, R, (T * k,), generator=gen, device=gen.device,
+                             dtype=torch.int32).cpu()
+        shifts = torch.randint(0, 32, (T * k,), generator=gen, device=gen.device,
+                               dtype=torch.int32).cpu()
+        shifts[::5] = 31
+        sets.append((rows, shifts))
+    return sets
+
+
+def epilogue_args(name: str, T: int, clauses: int = 16, members: int = 16) -> tuple:
+    """The epilogue's arguments after (bank, rows, shifts, T, K): every term
+    in the AND; ``clauses`` clauses of two terms, ``members`` members of two
+    clauses."""
     clause_bits = [(1 << (i % T)) | (1 << ((i + 1) % T)) for i in range(clauses)]
     member_bits = [(1 << (m % clauses)) | (1 << ((m + 5) % clauses)) for m in range(members)]
-    extra = {
+    return {
         "probe_and_pack": (),
         "probe_reduce_and_pack": ((1 << T) - 1,),
         "probe_clauses_pack": (clause_bits, member_bits),
     }[name]
+
+
+def plain_epilogue(pk, name: str, bank, rows, shifts, T: int, extra: tuple, k: int = K):
+    """The plain version of epilogue ``name`` on the bank's device (the host
+    probe arrays copied there)."""
+    rows, shifts = (torch.as_tensor(a).to(bank.device) for a in (rows, shifts))
+    match = pk.probe_plain(bank, rows, shifts, T, k)
+    if name == "probe_reduce_and_pack":
+        match = pk.reduce_and_plain(match, *extra)
+    elif name == "probe_clauses_pack":
+        match = pk.clauses_plain(match, *extra)
+    return pk.pack_bitmap_plain(match)
+
+
+def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
+                clauses: int = 16, members: int = 16, time_it: bool = True) -> dict:
+    """Hold one epilogue against its plain version at one shape and time
+    both (``time_it``). Each launch probes fresh random rows, so the rows
+    come from device memory as a query's would, not from the L2 cache; the
+    probe arrays are host arrays, as the engine passes them (the plain
+    version takes copies on the card)."""
+    R, C = bank.shape
+    reps = reps if time_it else 3
+    sets = probe_sets(gen, R, T, reps + 1)
+    extra = epilogue_args(name, T, clauses, members)
     kernel = getattr(pk, name)
 
     def plain(rows, shifts):
-        match = pk.probe_plain(bank, rows, shifts, T, K)
-        if name == "probe_reduce_and_pack":
-            match = pk.reduce_and_plain(match, *extra)
-        elif name == "probe_clauses_pack":
-            match = pk.clauses_plain(match, *extra)
-        return pk.pack_bitmap_plain(match)
+        return plain_epilogue(pk, name, bank, rows, shifts, T, extra)
 
     max_err = 0
     for rows, shifts in sets[:4]:
@@ -293,7 +379,8 @@ def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
         return {"key": key, "max_abs_err": max_err}
     ms = event_ms(lambda i: kernel(bank, *sets[i], T, K, *extra), reps, hide_host=True)
     call_ms = event_ms(lambda i: kernel(bank, *sets[i], T, K, *extra), reps, hide_host=False)
-    plain_ms = event_ms(lambda i: plain(*sets[i]), reps, hide_host=True)
+    on_card = [tuple(a.to(dev) for a in pair) for pair in sets]
+    plain_ms = event_ms(lambda i: plain(*on_card[i]), reps, hide_host=True)
     out_rows = key[3]
     # Least work: the T*K probed rows (each read once), the probe arrays and
     # the packed output. About 3 integer operations per probed word.
@@ -311,15 +398,16 @@ def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
 
 def phase_kernel(dev, refscale_rows: int = REFSCALE_ROWS, bench_rows: int = BENCH_ROWS,
                  bench_cols: int = 32_768) -> dict:
-    """Every epilogue at the refscale bank's C = 256 for every term count
-    the engine launches (T is padded to a power of two up to 16), with 16
-    clauses and 16 members, and at the bench shape C = 32,768, T = 4."""
+    """Every epilogue at the refscale bank's C = 256 for term counts 1 to 16
+    (the engine launches a batch's real term count, up to 16; ``PHASE3_T``
+    holds odd ones), with 16 clauses and 16 members, and at the bench shape
+    C = 32,768, T = 4."""
     from bloomsearch_tpu_torch.kernels import probe as pk
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bank = random_bank(refscale_rows, 256, gen, dev)
     cases = {}
-    for T in (1, 2, 4, 8, 16):
+    for T in PHASE3_T:
         for name in EPILOGUES:
             case = kernel_case(pk, bank, T, name, gen, dev)
             cases[case["key"]] = case
@@ -362,6 +450,117 @@ def phase_main_shapes(dev, launched: dict, cases: dict,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {counter: cases[key] for counter, key in top.items()}
+
+
+def old_probe_launcher(source: str):
+    """An earlier probe kernel, built from ``source``: a ``csrc/probe.cu``
+    whose ``bs_probe_launch`` takes the probe arrays on the card (the
+    interface before they moved into the launch's parameters). ->
+    launch(bank, rows, shifts, T, k, name, extra) on the current stream,
+    ``rows`` and ``shifts`` int32 tensors on the bank's device."""
+    import ctypes
+
+    from bloomsearch_tpu_torch.kernels import build
+    from bloomsearch_tpu_torch.kernels import probe as pk
+
+    path = os.path.join(tempfile.mkdtemp(prefix="bloomsearch-old-probe-"), "libold_probe.so")
+    report = build.build_library(source, path, force=True)
+    log(f"old probe kernel built from {source}: "
+        f"{[ln.strip() for ln in report.splitlines() if 'registers' in ln]}")
+    lib = pk.bind(path)  # the same C signatures: only where the probe arrays lie differs
+    modes = {"probe_and_pack": pk.MODE_PACK, "probe_reduce_and_pack": pk.MODE_REDUCE,
+             "probe_clauses_pack": pk.MODE_CLAUSES}
+
+    def launch(bank, rows, shifts, T, k, name, extra):
+        and_bits = extra[0] if name == "probe_reduce_and_pack" else 0
+        clause_bits, member_bits = extra if name == "probe_clauses_pack" else ((), ())
+        out_rows = {"probe_and_pack": T, "probe_reduce_and_pack": 1}.get(name, len(member_bits))
+        cb = (ctypes.c_uint32 * max(len(clause_bits), 1))(*clause_bits)
+        mb = (ctypes.c_uint32 * max(len(member_bits), 1))(*member_bits)
+        R, C = bank.shape
+        out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
+        err = lib.bs_probe_launch(
+            bank.data_ptr(), R, C, rows.data_ptr(), shifts.data_ptr(), T, k, modes[name],
+            and_bits, cb, len(clause_bits), mb, len(member_bits), out.data_ptr(),
+            torch.cuda.current_stream(bank.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old probe kernel launch failed: cudaError {err}")
+        return out
+
+    return launch
+
+
+def turns_against_old_probe(dev, source: str, main_cases: dict, reps: int = 25,
+                            refscale_rows: int = REFSCALE_ROWS,
+                            bench_rows: int = BENCH_ROWS) -> dict:
+    """This probe kernel against an earlier one built from ``source``
+    (``old_probe_launcher``) on the same card, timed in turns (old, new,
+    new, old; device time behind a spin kernel, fresh random rows each
+    launch, its own for each run): every phase-3 shape, each epilogue's
+    most launched main-path shape (``main_cases``, phase 6) and the bench
+    shape, beside an empty launch by the same clock. The earlier kernel
+    reads its probe arrays from the card (uploaded before the timing); the
+    caller's time of each (``call_ms``: the earlier kernel with the upload
+    of its probe arrays, this one with them in its parameters) is timed
+    once each. Both kernels must equal the plain version at every case."""
+    from bloomsearch_tpu_torch.kernels import probe as pk
+
+    old = old_probe_launcher(source)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    # What an empty launch takes by the same clock: the least any kernel can.
+    empty_ms = event_ms(lambda i: torch.cuda._sleep(1), reps, hide_host=True)
+    log(f"turns: an empty launch (a 1-cycle spin kernel) takes {empty_ms:.6f} ms between "
+        "CUDA events behind a spin kernel")
+    shapes = [(refscale_rows, 256, T, name, 16, 16) for T in PHASE3_T for name in EPILOGUES]
+    shapes += [(bench_rows, 32_768, 4, name, 16, 16) for name in EPILOGUES]
+    name_of = {counter: name for name, (counter, _) in EPILOGUES.items()}
+    for counter, case in sorted(main_cases.items()):
+        _, C, T, rows, clauses = case["key"]
+        shapes.append((refscale_rows, C, T, name_of[counter], max(clauses, 1), rows))
+    banks: dict = {}
+    result = {}
+    for R, C, T, name, clauses, members in shapes:
+        if (R, C) not in banks:
+            banks.clear()
+            banks[(R, C)] = random_bank(R, C, gen, dev)
+        bank = banks[(R, C)]
+        # Each timing run probes its own fresh rows (a run's rows would
+        # otherwise sit in the L2 cache for the next).
+        runs = 6
+        sets = probe_sets(gen, R, T, runs * reps)
+        on_card = [tuple(a.to(dev) for a in pair) for pair in sets]
+        extra = epilogue_args(name, T, clauses, members)
+        kernel = getattr(pk, name)
+        old_fn = lambda i, o=0: old(bank, *on_card[o + i], T, K, name, extra)  # noqa: E731
+        new_fn = lambda i, o=0: kernel(bank, *sets[o + i], T, K, *extra)  # noqa: E731
+        for i in range(3):
+            want = plain_epilogue(pk, name, bank, *on_card[i], T, extra)
+            if not (torch.equal(old_fn(i), want) and torch.equal(new_fn(i), want)):
+                raise AssertionError(f"turns {name} C={C} T={T}: a kernel differs from the "
+                                     "plain version")
+        ms = [event_ms(lambda i, fn=fn, o=run * reps: fn(i, o), reps, hide_host=True)
+              for run, fn in enumerate((old_fn, new_fn, new_fn, old_fn))]
+
+        def old_call(i, o=4 * reps):
+            probes = torch.from_numpy(np.stack([a.numpy() for a in sets[o + i]])).to(dev)
+            return old(bank, probes[0], probes[1], T, K, name, extra)
+
+        bound_ms, bound_by = probe_bound(T, C, {"probe_and_pack": T,
+                                                "probe_reduce_and_pack": 1}.get(name, members))
+        label = f"{name} R={R} C={C} T={T}" + (
+            f" clauses={clauses} members={members}" if name == "probe_clauses_pack" else "")
+        result[label] = {
+            "old_ms": [ms[0], ms[3]], "new_ms": [ms[1], ms[2]],
+            "old_call_ms": event_ms(old_call, reps, hide_host=False),
+            "new_call_ms": event_ms(lambda i: new_fn(i, 5 * reps), reps, hide_host=False),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        r = result[label]
+        log(f"turns {label}: old {ms[0]:.6f}, new {ms[1]:.6f}, new {ms[2]:.6f}, old "
+            f"{ms[3]:.6f} ms; calls old {r['old_call_ms']:.6f}, new {r['new_call_ms']:.6f} ms; "
+            f"bound {bound_ms:.6f} ms ({bound_by}); both = plain version")
+    banks.clear()
+    torch.cuda.empty_cache()
+    return {"turns": result, "empty_launch_ms": empty_ms}
 
 
 # -- phase 4: the scan kernel -----------------------------------------------------
@@ -1253,8 +1452,8 @@ def probe_bound(T: int, C: int, out_rows: int) -> tuple[float, str]:
 
 def needle_probes(shapes: dict, banks: list) -> list[dict]:
     """Each needle query's probe arrays per superbank, as the engine builds
-    them (terms padded to a power of two with zero probes), with its
-    flat-AND bits and CNF clause and member bits."""
+    them (host arrays, the real term count), with its flat-AND bits and CNF
+    clause and member bits."""
     from bloomsearch_tpu_torch.bloom.probe import compile_bloom_terms, compile_cnf_clauses
 
     cases = []
@@ -1262,17 +1461,15 @@ def needle_probes(shapes: dict, banks: list) -> list[dict]:
         bloom = shapes[name].bloom
         terms = compile_bloom_terms(bloom)
         T = len(terms)
-        Tp = 1 << (T - 1).bit_length()
         mask = compile_cnf_clauses(bloom.expression, terms)
         clause_bits = [int(sum(1 << t for t in range(T) if row[t])) for row in np.asarray(mask)]
         for bi, (_, m_bits, k, layout, num_words) in enumerate(banks):
             word_idx, bit_idx = terms.positions_for(m_bits, k, layout)
             rows = (terms.ks_idx[:, None].astype(np.int32) * num_words + word_idx).reshape(-1)
-            pad = (Tp - T) * k
             cases.append({
-                "query": name, "bank": bi, "T": Tp, "K": k,
-                "rows": np.pad(rows, (0, pad)).astype(np.int32),
-                "shifts": np.pad(bit_idx.reshape(-1), (0, pad)).astype(np.int32),
+                "query": name, "bank": bi, "T": T, "K": k,
+                "rows": rows.astype(np.int32),
+                "shifts": bit_idx.reshape(-1).astype(np.int32),
                 "and_bits": (1 << T) - 1, "clause_bits": clause_bits,
                 "member_bits": [(1 << len(clause_bits)) - 1],
             })
@@ -1347,12 +1544,12 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     n_probes = 0
     for case in cases:
         bank = joined[case["bank"]]
-        r = torch.from_numpy(case["rows"]).to(dev)
-        s_ = torch.from_numpy(case["shifts"]).to(dev)
+        r, s_ = case["rows"], case["shifts"]  # host arrays, as the engine passes them
+        r_dev, s_dev = torch.from_numpy(r).to(dev), torch.from_numpy(s_).to(dev)
         for name, (call, unsharded, plain) in mesh_probe_calls(pm, mesh, case).items():
             got = call(sharded[case["bank"]])
             want = unsharded(bank, r, s_).cpu()
-            plain_out = plain(pk.probe_plain(bank, r, s_, case["T"], case["K"])).cpu()
+            plain_out = plain(pk.probe_plain(bank, r_dev, s_dev, case["T"], case["K"])).cpu()
             if not (torch.equal(got, want) and torch.equal(got, plain_out)):
                 raise AssertionError(f"{name} {case['query']}: sharded result differs")
             # The engine's own unsharded bank (C = its capacity) is the prefix.
@@ -1390,8 +1587,8 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
 
     # Times. The sharded call returns the joined bitmap on the host, so it
     # is timed as a caller sees it (events around the call, host work and
-    # the copies included), beside the single-device engine's call (one
-    # upload of the probe arrays, the launch, its copy to the host) and the
+    # the copies included), beside the single-device engine's call (the
+    # launch with the host probe arrays, its copy to the host) and the
     # same wrapper given the unsharded tensor (one shard); the shard
     # launches alone, one shard launch and one unsharded launch are device
     # times (behind a spin kernel). Bounds are per card: the most any one
@@ -1404,14 +1601,11 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
         case = next(c for c in cases if c["query"] == query and c["bank"] == 0)
         call, unsharded, plain = mesh_probe_calls(pm, mesh, case)[name]
         shards, own = sharded[0], banks[0][0]
-        r = torch.from_numpy(case["rows"]).to(dev)
-        s_ = torch.from_numpy(case["shifts"]).to(dev)
-        probes = {d: (r.to(d), s_.to(d)) for d in mesh.distinct_devices()}
-        stacked = np.stack([case["rows"], case["shifts"]]).astype(np.int32)
+        r, s_ = case["rows"], case["shifts"]
+        r_dev, s_dev = torch.from_numpy(r).to(dev), torch.from_numpy(s_).to(dev)
 
-        def single(i, unsharded=unsharded, stacked=stacked, own=own):
-            p = torch.from_numpy(stacked).to(own.device)
-            return unsharded(own, p[0], p[1]).cpu()
+        def single(i, unsharded=unsharded, r=r, s_=s_, own=own):
+            return unsharded(own, r, s_).cpu()
 
         out_rows = {"sharded_probe_packed": case["T"], "sharded_query_step": 1,
                     "sharded_probe_clauses": len(case["member_bits"])}[name]
@@ -1422,10 +1616,9 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
             {"ms": lambda i, call=call, shards=shards: call(shards),
              "unsharded_call_ms": single,
              "one_shard_call_ms": lambda i, call=call, own=own: call(own)},
-            lambda sh, unsharded=unsharded, probes=probes, r=r, s_=s_: unsharded(
-                sh, *probes.get(sh.device, (r, s_))),
+            lambda sh, unsharded=unsharded, r=r, s_=s_: unsharded(sh, r, s_),
             shards, joined[0],
-            lambda i, plain=plain, case=case, r=r, s_=s_: plain(
+            lambda i, plain=plain, case=case, r=r_dev, s_=s_dev: plain(
                 pk.probe_plain(joined[0], r, s_, case["T"], case["K"])),
             probe_bound(case["T"], card_cols, out_rows), reps)
     args = needle_sets[0]
@@ -1465,7 +1658,8 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     # c. The entry step on the card against its plain version.
     fn, (bank2d, row_idx, shift) = graft_entry.entry()
     got = fn(bank2d, row_idx, shift)
-    want = pk.pack_bitmap_plain(pk.probe_plain(bank2d, row_idx, shift, 4, row_idx.shape[0] // 4))
+    want = pk.pack_bitmap_plain(pk.probe_plain(bank2d, row_idx.to(dev), shift.to(dev), 4,
+                                               row_idx.shape[0] // 4))
     torch.cuda.synchronize()
     if bank2d.device.type != "cuda" or not torch.equal(got, want):
         raise AssertionError("graft_entry.entry() differs from probe_and_pack's plain version")
@@ -1610,16 +1804,14 @@ def floor_case(pk, bank: torch.Tensor, gen, dev, label: str, T: int = 4,
     ``time_it`` the plain version's single-call time and the kernel's single
     launch (device time behind a spin kernel)."""
     R, C = bank.shape
-    sets = []
-    for _ in range(4):
-        rows = torch.randint(0, R, (T * K,), generator=gen, device=dev, dtype=torch.int32)
+    sets = probe_sets(gen, R, T, 4)
+    for rows, _ in sets:
         rows[0::3] = rows[0::3] & ~7
         rows[1::3] = torch.clamp(rows[1::3] | 7, max=R - 1)
-        sets.append((rows, torch.randint(0, 32, (T * K,), generator=gen, device=dev,
-                                         dtype=torch.int32)))
-    for rows, shifts in sets:
+    on_card = [rows.to(dev) for rows, _ in sets]
+    for (rows, shifts), rows_dev in zip(sets, on_card):
         got = pk.probe_floor(bank, rows, shifts, T, K)
-        want = pk.probe_floor_plain(bank, rows, T, K)
+        want = pk.probe_floor_plain(bank, rows_dev, T, K)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"probe_floor {label}: kernel disagrees with plain version")
@@ -1627,7 +1819,7 @@ def floor_case(pk, bank: torch.Tensor, gen, dev, label: str, T: int = 4,
     if time_it:
         case["launch_ms"] = event_ms(lambda i: pk.probe_floor(bank, *sets[i % 4], T, K), 25,
                                      hide_host=True)
-        case["plain_ms"] = event_ms(lambda i: pk.probe_floor_plain(bank, sets[i % 4][0], T, K),
+        case["plain_ms"] = event_ms(lambda i: pk.probe_floor_plain(bank, on_card[i % 4], T, K),
                                     25, hide_host=True)
     log(f"probe_floor {label} R={R} C={C} T={T} K={K}: bit-identical"
         + (f"; single launch {case['launch_ms']:.6f} ms, plain {case['plain_ms']:.6f} ms "
@@ -1761,6 +1953,9 @@ def probe_phases(dev, args, cases: dict, done) -> list[dict]:
         + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
     main_cases = phase_main_shapes(dev, launched, cases)
     done("main-path shapes")
+    if args.old_probe:
+        log(json.dumps({"old_probe": turns_against_old_probe(dev, args.old_probe, main_cases)}))
+        done("probe turns")
     kernels = []
     for name, (counter, replaces) in EPILOGUES.items():
         if counter not in main_cases:
@@ -1781,6 +1976,9 @@ def main(argv=None) -> int:
     parser.add_argument("--target-mb", type=int, default=1600,
                         help="refscale dataset size (the reference's 1.6 GB)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--old-probe", metavar="SOURCE",
+                        help="also time an earlier probe kernel source (a csrc/probe.cu that "
+                             "takes its probe arrays on the card) against this one, in turns")
     parser.add_argument("--old-scan", metavar="SOURCE",
                         help="also time an earlier scan kernel source (a csrc/scan.cu with "
                              "the uniform-segment interface) against this one, in turns")

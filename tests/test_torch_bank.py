@@ -240,6 +240,46 @@ class TestProbeGroups:
             np.testing.assert_array_equal(got, want, err_msg=f"query {qi}")
 
 
+class TestRealTermCount:
+    def test_combiner_launches_the_real_term_count(self, monkeypatch):
+        """Odd term counts launch as they are: the port's combiner passes
+        the batch's real term count (no power-of-two padding terms, whole
+        warps of wasted loads on the card), and every result still equals
+        the JAX bank's. The wrappers are spied on as a card counts them."""
+        from bloomsearch_tpu_torch.kernels import probe as pk
+
+        counters = {"probe_and_pack": "pack", "probe_reduce_and_pack": "reduce_and",
+                    "probe_clauses_pack": "clauses"}
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+        for name, counter in counters.items():
+            def spy(bank, rows, shifts, T, K, *extra, _orig=getattr(tbank, name), _c=counter):
+                assert isinstance(rows, np.ndarray) and isinstance(shifts, np.ndarray)
+                out_rows = {"pack": T, "reduce_and": 1}.get(_c) or len(extra[1])
+                pk._count(_c, bank.shape[1], T, out_rows, len(extra[0]) if _c == "clauses" else 0)
+                return _orig(bank, rows, shifts, T, K, *extra)
+
+            monkeypatch.setattr(tbank, name, spy)
+        pair = backends()
+        bank = make_bank([([f"f{i}"], [f"t{i}", "shared", f"u{i % 3}"], []) for i in range(20)])
+        req = [(b"F", 0, MK, lambda: bank)]
+        pk.reset_launch_counts()
+        _, three = make_terms(("token", "shared"), ("token", "u1"), ("field", "f4"))
+        _, five = make_terms(*[("token", t) for t in ("t1", "t2", "shared", "u0", "u2")])
+        expr, clause_terms = make_terms(
+            ("match", bs.or_(bs.token("t3"), bs.token("u2"), bs.token("t9"))))
+        got = [
+            probe_both(pair, req, three, reduce_and=True),
+            probe_both(pair, req, five),
+            probe_both(pair, req, clause_terms,
+                       clause_mask=compile_cnf_clauses(expr.expression, clause_terms)),
+        ]
+        assert all(next(iter(g.values())).any() for g in got)
+        C = pair[1]._superbanks[MK].capacity
+        assert pk.launch_shapes() == {("reduce_and", C, 3, 1, 0): 1, ("pack", C, 5, 5, 0): 1,
+                                      ("clauses", C, 3, 1, 1): 1}
+        pk.reset_launch_counts()
+
+
 class TestResidency:
     def test_lru_eviction_under_cache_bytes(self):
         """Same budget, same probes: the same segments are evicted, the same

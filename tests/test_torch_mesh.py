@@ -134,6 +134,46 @@ def test_probe_wrappers_match_reference(n, epilogue):
     np.testing.assert_array_equal(words(got), words(unsharded))
 
 
+@pytest.mark.parametrize("epilogue", ["pack", "query_step", "clauses"])
+def test_probe_wrappers_take_host_tensors_at_an_odd_term_count(epilogue):
+    """On the 4-shard CPU mesh the probe arrays are host data given to every
+    shard as they are: CPU tensors at T = 3 (no power-of-two padding) equal
+    the JAX mesh's result, and a probe array on another device is refused."""
+    n, t, k = 4, 3, 5
+    jmesh, tmesh = meshes(n)
+    rng = np.random.default_rng(77)
+    bank = rng.integers(0, 2**32, size=(40, 128 * n + 9), dtype=np.uint32)
+    bank[:, ::3] = 0xFFFFFFFF
+    row_idx = rng.integers(0, 40, size=t * k).astype(np.int32)
+    shift = rng.integers(0, 32, size=t * k).astype(np.int32)
+    jbank2d, tbank2d = jm.shard_bank(jmesh, bank), pm.shard_bank(tmesh, bank)
+    r, s = jnp.asarray(row_idx), jnp.asarray(shift)
+    rt, st = torch.from_numpy(row_idx), torch.from_numpy(shift)
+    common = dict(use_pallas=True, interpret=True)
+    clause = np.array([[1, 1, 0], [0, 0, 1]], np.float32)
+    member = np.array([[1, 1], [0, 1]], np.float32)
+    calls = {
+        "pack": (lambda rr, ss: pm.sharded_probe_packed(tmesh, tbank2d, rr, ss, t, k),
+                 lambda: jm.sharded_probe_packed(jmesh, jbank2d, r, s, t, k, **common)),
+        "query_step": (
+            lambda rr, ss: pm.sharded_query_step(tmesh, tbank2d, rr, ss, 0b101, t, k)[0],
+            lambda: jm.sharded_query_step(jmesh, jbank2d, r, s, jnp.asarray([True, False, True]),
+                                          t, k, **common)[0]),
+        "clauses": (
+            lambda rr, ss: pm.sharded_probe_clauses(tmesh, tbank2d, rr, ss, [0b011, 0b100],
+                                                    [0b11, 0b10], t, k),
+            lambda: jm.sharded_probe_clauses(jmesh, jbank2d, r, s, jnp.asarray(clause),
+                                             jnp.asarray(member), t, k, **common)),
+    }
+    port, ref = calls[epilogue]
+    want = words(ref())
+    np.testing.assert_array_equal(words(port(rt, st)), want)
+    np.testing.assert_array_equal(words(port(row_idx, shift)), want)
+    assert want.any() and not want.all()
+    with pytest.raises(ValueError, match="host data"):
+        port(rt.to("meta"), st)
+
+
 def planted_chunks(G: int, needles, seed: int) -> np.ndarray:
     """Random chunks (bytes >= 0x80 included) with needle r planted on both
     sides of every 512-chunk shard boundary: at start 479 of chunk

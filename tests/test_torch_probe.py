@@ -138,7 +138,7 @@ class TestEpilogueParity:
 
     @pytest.mark.parametrize("T,active", [(1, 1), (2, 1), (4, 3), (8, 5)])
     def test_reduce_and_with_padding_terms(self, T, active):
-        """Tp padding terms (zero rows/shifts, as the bank pads) sit outside
+        """Padding terms (zero rows/shifts, as the JAX bank pads) sit outside
         the AND and count as true."""
         K = 3
         bank, rows, shifts = make_case(20 + T, 16, 256, T, K, zero_cols=32)
@@ -250,6 +250,105 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         tk.probe_clauses_pack(b, r, s, 2, 2, [1] * 33, [1])
 
 
+def jax_epilogue(name, bank, rows, shifts, T, K, extra):
+    """The JAX package's fused epilogue ``name`` through its Pallas kernel
+    in interpret mode, with the port's bit-mask arguments as its masks."""
+    args = (jnp.asarray(bank), jnp.asarray(rows), jnp.asarray(shifts), T, K)
+    common = dict(use_pallas=True, interpret=True)
+    if name == "probe_and_pack":
+        return words(pk.probe_and_pack(*args, **common))
+    if name == "probe_reduce_and_pack":
+        mask = np.array([(extra[0] >> t) & 1 for t in range(T)], dtype=bool)
+        return words(pk.probe_reduce_and_pack(*args, jnp.asarray(mask), **common))
+    cb, mb = extra
+    clause = np.array([[(b >> t) & 1 for t in range(T)] for b in cb], np.float32)
+    member = np.array([[(b >> i) & 1 for i in range(len(cb))] for b in mb], np.float32)
+    return words(pk.probe_clauses_pack(*args, jnp.asarray(clause), jnp.asarray(member),
+                                       **common))
+
+
+def odd_epilogue_args(T: int) -> dict:
+    """Each epilogue's arguments at T terms: the AND skips term 1; three
+    clauses (one of the last term alone), two members."""
+    return {
+        "probe_and_pack": (),
+        "probe_reduce_and_pack": (((1 << T) - 1) & ~2,),
+        "probe_clauses_pack": ([0b11 & ((1 << T) - 1), 1 << (T - 1), (1 << T) - 1],
+                               [0b011, 0b110]),
+    }
+
+
+class TestHostProbeArrays:
+    """The probe arrays are host data: numpy arrays or CPU tensors, any term
+    count up to 32 (no power-of-two padding), any K up to the limit."""
+
+    @pytest.mark.parametrize("T,K", [(3, 1), (5, 7), (6, 10), (7, 20), (11, 30)])
+    @pytest.mark.parametrize("name", ["probe_and_pack", "probe_reduce_and_pack",
+                                      "probe_clauses_pack"])
+    def test_numpy_and_cpu_tensor_probes_match_pallas(self, T, K, name):
+        bank, rows, shifts = make_case(T * 100 + K, 64, 256, T, K, zero_cols=32)
+        extra = odd_epilogue_args(T)[name]
+        want = jax_epilogue(name, bank, rows, shifts, T, K, extra)
+        b = torch.from_numpy(bank.view(np.int32).copy())
+        fn = getattr(tk, name)
+        np.testing.assert_array_equal(words(fn(b, rows, shifts, T, K, *extra)), want)
+        np.testing.assert_array_equal(
+            words(fn(b, torch.from_numpy(rows), torch.from_numpy(shifts), T, K, *extra)), want)
+        if name == "probe_and_pack":
+            assert want.any() and not want.all()
+
+    def test_probe_arrays_on_another_device_are_refused(self):
+        bank, rows, shifts = make_case(70, 8, 128, 2, 2)
+        b = torch.from_numpy(bank.view(np.int32).copy())
+        meta = torch.empty(4, dtype=torch.int32, device="meta")
+        for fn, extra in ((tk.probe_and_pack, ()), (tk.probe_reduce_and_pack, (3,)),
+                          (tk.probe_clauses_pack, ([1], [1]))):
+            with pytest.raises(ValueError, match="host data"):
+                fn(b, meta, shifts, 2, 2, *extra)
+            with pytest.raises(ValueError, match="host data"):
+                fn(b, rows, meta, 2, 2, *extra)
+        with pytest.raises(ValueError, match="host data"):
+            tk.probe_floor(b, meta, shifts, 2, 2)
+        with pytest.raises(ValueError):
+            tk.probe_and_pack(b, rows.astype(np.int64), shifts, 2, 2)
+        with pytest.raises(ValueError):
+            tk.probe_and_pack(b, torch.from_numpy(rows).long(), shifts, 2, 2)
+
+    def test_probe_limit_is_refused_one_past_it(self):
+        """T*K = MAX_PROBES (the kernel's parameter capacity) runs and equals
+        the JAX package's probe; one more probe, or a 33rd term, is
+        refused."""
+        T, K = 32, tk.MAX_PROBES // 32
+        assert T * K == tk.MAX_PROBES == 6400
+        bank, rows, shifts = make_case(71, 16, 128, T, K)
+        want = np.asarray(pk.probe_bank_xla(jnp.asarray(bank), jnp.asarray(rows),
+                                            jnp.asarray(shifts), K))
+        got = tk.probe_plain(*port_args(bank, rows, shifts), T, K).numpy()
+        np.testing.assert_array_equal(got, want)
+        b = torch.from_numpy(bank.view(np.int32).copy())
+        np.testing.assert_array_equal(tk.probe_and_pack(b, rows, shifts, T, K).numpy(),
+                                      tk.pack_bitmap_plain(torch.from_numpy(want.copy())).numpy())
+        over = np.zeros(tk.MAX_PROBES + 1, np.int32)
+        with pytest.raises(ValueError, match="6400 probes"):
+            tk.probe_and_pack(b, over, over, 1, tk.MAX_PROBES + 1)
+        with pytest.raises(ValueError, match="6400 probes"):
+            tk.probe_floor(b, over, over, 1, tk.MAX_PROBES + 1)
+        with pytest.raises(ValueError):
+            tk.probe_and_pack(b, np.zeros(33, np.int32), np.zeros(33, np.int32), 33, 1)
+
+    def test_rows_outside_the_bank_read_zero(self):
+        """The kernel's row check, in the plain versions: a probe of a row
+        outside [0, R) reads 0, so its term never matches."""
+        bank = np.full((16, 64), 0xFFFFFFFF, dtype=np.uint32)
+        rows = np.array([0, 3, -1, 5, 16, 2, 2**31 - 1, 7], dtype=np.int32)
+        shifts = np.full(8, 31, dtype=np.int32)
+        b = torch.from_numpy(bank.view(np.int32).copy())
+        got = words(tk.probe_and_pack(b, rows, shifts, 4, 2))
+        np.testing.assert_array_equal(got, [[0xFFFFFFFF] * 2, [0] * 2, [0] * 2, [0] * 2])
+        floor = tk.probe_floor(b, rows, shifts, 4, 2).numpy().view(np.uint32)
+        assert (floor == 0xFFFFFFFF).all()  # each term has one row inside
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -259,7 +358,7 @@ def test_cuda_kernel_matches_plain_version():
     for seed, (R, C, T, K) in enumerate([(40, 256, 3, 10), (16, 4096, 16, 2), (1024, 128, 1, 7)]):
         bank, rows, shifts = make_case(60 + seed, R, C, T, K, zero_cols=32)
         cpu = port_args(bank, rows, shifts)
-        gpu = tuple(t.to(dev) for t in cpu)
+        gpu = (cpu[0].to(dev), rows, shifts)  # the probe arrays stay host arrays
         cb = [(1 << (i % T)) | (1 << ((i + 1) % T)) for i in range(16)]
         mb = [(1 << m) | (1 << ((m + 5) % 16)) for m in range(16)]
         for fn, extra in (

@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from bloomsearch_tpu.bloom.pallas_kernels import ROW_GROUP  # noqa: E402
 from bloomsearch_tpu_torch.kernels import probe as tk  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_compile_cache, gen_bench_datasets, timing  # noqa: E402
+from bloomsearch_tpu_torch.tools import exp_probe_variants  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_kernel_floor as floor  # noqa: E402
 
 
@@ -213,6 +214,27 @@ def test_tools_refuse_cuda_without_a_card():
         floor.main([])
 
 
+def test_probe_variants_rewrite_one_define_each():
+    """Each variant of csrc/probe.cu differs from the source in one #define
+    (the least warps a block, or the small parameter struct's capacity),
+    and the tool has no CPU form."""
+    with open(tk.SOURCE) as fh:
+        source = fh.read().splitlines()
+    variants = exp_probe_variants.variant_sources()
+    assert len(variants) == len(exp_probe_variants.BLOCK_WARPS) + 1
+    for name, text in variants.items():
+        changed = [(a, b) for a, b in zip(source, text.splitlines()) if a != b]
+        if name == "block_warps=4":
+            assert changed == []
+            continue
+        assert len(changed) == 1, name
+        want = "#define CAP_SMALL CAP_MAX" if "struct" in name else \
+            f"#define BLOCK_WARPS {name.split('=')[1]}"
+        assert changed[0][1].startswith(want), name
+    with pytest.raises(RuntimeError):
+        exp_probe_variants.measure("cpu", log=lambda m: None)
+
+
 @pytest.mark.cuda
 def test_cuda_floor_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -222,7 +244,7 @@ def test_cuda_floor_kernel_matches_plain_version():
     for R, C in ((64, 256), (13_480, 512)):
         bank, rows, shifts = floor_case(R, R, C, 4, 10)
         cpu = port(bank, rows, shifts)
-        got = tk.probe_floor(*(t.to(dev) for t in cpu), 4, 10)
+        got = tk.probe_floor(cpu[0].to(dev), rows, shifts, 4, 10)  # host probe arrays
         torch.cuda.synchronize()
         np.testing.assert_array_equal(got.cpu().numpy(), tk.probe_floor_plain(cpu[0], cpu[1], 4, 10).numpy())
     assert tk.launch_counts()["floor"] == 2
@@ -233,7 +255,8 @@ def test_cuda_chain_counts_the_launches_its_replays_run():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU form")
     dev = torch.device("cuda")
-    bank, rows, shifts = (t.to(dev) for t in port(*floor_case(3, 64, 256, 4, 10)))
+    bank, rows, shifts = port(*floor_case(3, 64, 256, 4, 10))
+    bank = bank.to(dev)  # the probe arrays stay host tensors
     out = torch.empty((4, 256), dtype=torch.int32, device=dev)
     tk.reset_launch_counts()
     timing.chain_ms(lambda i: tk.probe_floor(bank, rows, shifts, 4, 10, out=out), 5, dev, reps=2)
