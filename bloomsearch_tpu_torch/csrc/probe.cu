@@ -54,6 +54,16 @@
 //   warps where C allows (tools/exp_probe_variants.py times 1 to 32). The term words of the block meet in shared
 //   memory, one word per warp, and the reduce and clauses epilogues are
 //   word algebra over them: no per-column bits remain after the ballot.
+// - One launch covers every shard a card holds (bloomsearch_tpu/parallel/
+//   mesh.py's sharded_probe_* ran the probe on each block-axis shard under
+//   shard_map; the port's K3 wrappers, parallel/mesh.py). The launch takes
+//   a table of up to MAX_SHARDS shard pointers, all [R, C]; word w of the
+//   launch is word w % (C/32) of shard w / (C/32), and every store goes to
+//   row * out_stride + first_word + w, so the card's words land where they
+//   belong in the joined bitmap of the whole mesh, which may be page-locked
+//   host memory the kernel writes through its device address. The
+//   single-device launch (one shard, stride C/32) runs an instantiation
+//   without the shard lookup, so its code is the unsharded kernel's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,10 +74,11 @@
 #define MAX_CLAUSES 32
 #define MAX_MEMBERS 32
 #define MAX_WARPS 32
+#define MAX_SHARDS 8  // shards one launch covers (kernels/probe.py MAX_SHARDS)
 #define LOAD_GROUP 16
 #define BLOCK_WARPS 4  // least warps a block holds where C allows
 #define CAP_SMALL 256
-#define CAP_MAX 6400  // T*K (kernels/probe.py MAX_PROBES); 32,392 bytes of parameters
+#define CAP_MAX 6400  // T*K (kernels/probe.py MAX_PROBES); 32,480 bytes of parameters
 #define FULL_MASK 0xffffffffu
 
 // Everything but the C entry points has internal linkage: a process may
@@ -76,9 +87,9 @@ namespace {
 
 template <int CAP>
 struct Params {
-  const int32_t* bank;
+  const int32_t* bank;  // the first (or only) shard, int32[R, C]
   int32_t* out;
-  int64_t C;
+  int64_t C;  // columns of one shard
   uint32_t rows_in;  // min(R, 2^31): row r is inside iff (uint32_t)r < rows_in
   int T, K, mode, words_per_block;
   uint32_t and_bits;  // bits of terms outside [0, T) cleared by the host
@@ -89,6 +100,12 @@ struct Params {
   // probe reads them (or the next term's) and ignores what it reads.
   int32_t row[CAP + LOAD_GROUP];
   uint8_t shift[CAP + LOAD_GROUP];  // already & 31
+  // The general layout only (probe_kernel<CAP, true>), after the fields the
+  // single-device launch reads, which keep their places:
+  const int32_t* shards[MAX_SHARDS];  // this launch's shards, shards[0] == bank
+  int64_t words;             // output words of the launch: n_shards * C/32
+  int64_t out_stride;        // words from one output row to the next
+  uint32_t words_per_shard;  // C/32
 };
 
 // What a probe outside [0, R) reads (zeros), and what a slot past a term's
@@ -110,8 +127,9 @@ __device__ const int32_t kOnes[32] = {
 // probe's aligned 8-row group); the row check is on the row itself either
 // way.
 template <int CAP, typename Use>
-__device__ __forceinline__ void term_words(const Params<CAP>& p, int t, int64_t c,
-                                           int32_t row_mask, const int32_t* past_k, Use use) {
+__device__ __forceinline__ void term_words(const Params<CAP>& p, const int32_t* bank, int t,
+                                           int64_t c, int32_t row_mask, const int32_t* past_k,
+                                           Use use) {
   const int K = p.K;
   const int base = t * K;
   const int32_t C = (int32_t)p.C;  // < 2^31, checked by the host
@@ -120,7 +138,7 @@ __device__ __forceinline__ void term_words(const Params<CAP>& p, int t, int64_t 
   // Byte addresses, selected without a branch. The element offset of any
   // int32 row times C < 2^31 fits an int64; the unused address of a row
   // outside the bank wraps as an unsigned value.
-  const uint64_t col = (uint64_t)(p.bank + c);
+  const uint64_t col = (uint64_t)(bank + c);
   const uint64_t zeros = (uint64_t)(kZeros + lane), pad = (uint64_t)(past_k + lane);
   for (int j0 = 0; j0 < K; j0 += LOAD_GROUP) {
     int32_t r[LOAD_GROUP];
@@ -143,28 +161,41 @@ __device__ __forceinline__ void term_words(const Params<CAP>& p, int t, int64_t 
   }
 }
 
-template <int CAP>
+// SHARDED: the launch's general layout (several shards, or an output wider
+// than one bank); else one bank into its own [rows, C/32] output, the
+// single-device launch, which then takes no division and no table lookup.
+template <int CAP, bool SHARDED>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     probe_kernel(const __grid_constant__ Params<CAP> p) {
   __shared__ uint32_t s_word[MAX_WARPS];  // warp's term word: [local word][term]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int t = warp % p.T;
-  const int64_t words = p.C >> 5;
+  const int64_t words = SHARDED ? p.words : p.C >> 5;
+  const int64_t stride = SHARDED ? p.out_stride : words;
   const int64_t w0 = (int64_t)blockIdx.x * p.words_per_block;
   const int64_t w = w0 + warp / p.T;
+  int32_t* const out = p.out;  // word w of row r: out[r * stride + w]
 
   // C is a multiple of 32, so a warp is wholly inside or wholly past the
-  // bank, and the full-mask ballot never sees an idle lane.
+  // bank, and the full-mask ballot never sees an idle lane. Word w is
+  // shard w / words_per_shard's word w % words_per_shard.
   uint32_t word = 0;
   if (w < words) {
+    const int32_t* bank = p.bank;
+    uint32_t local = (uint32_t)w;
+    if (SHARDED) {
+      const uint32_t shard = local / p.words_per_shard;
+      local -= shard * p.words_per_shard;
+      bank = p.shards[shard];
+    }
     uint32_t bit = 1;
-    term_words(p, t, w * 32 + lane, ~0, kOnes,
+    term_words(p, bank, t, (int64_t)local * 32 + lane, ~0, kOnes,
                [&](uint32_t v, uint32_t sh) { bit &= (v >> sh) & 1u; });
     word = __ballot_sync(FULL_MASK, bit);
   }
   if (p.mode == MODE_PACK) {
-    if (lane == 0 && w < words) p.out[t * words + w] = (int32_t)word;
+    if (lane == 0 && w < words) out[t * stride + w] = (int32_t)word;
     return;
   }
   if (lane == 0) s_word[warp] = word;
@@ -177,7 +208,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     const uint32_t* tw = s_word + threadIdx.x * p.T;
     uint32_t acc = FULL_MASK;
     for (uint32_t m = p.and_bits; m; m &= m - 1) acc &= tw[__ffs(m) - 1];
-    p.out[w0 + threadIdx.x] = (int32_t)acc;
+    out[w0 + threadIdx.x] = (int32_t)acc;
     return;
   }
   // MODE_CLAUSES: thread (local word x, member m).
@@ -192,7 +223,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       clause |= tw[__ffs(tm) - 1];
     acc &= clause;
   }
-  p.out[m * words + w0 + x] = (int32_t)acc;
+  out[m * stride + w0 + x] = (int32_t)acc;
 }
 
 // K1f, the access-pattern floor of probe_kernel. Replaces the Pallas floor
@@ -218,65 +249,99 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   if (w >= (p.C >> 5)) return;
   const int64_t c = w * 32 + lane;
   uint32_t acc = 0;
-  term_words(p, t, c, ~7, kZeros, [&](uint32_t v, uint32_t) { acc |= v; });
+  term_words(p, p.bank, t, c, ~7, kZeros, [&](uint32_t v, uint32_t) { acc |= v; });
   p.out[t * p.C + c] = (int32_t)acc;
 }
 
+// One launch's arguments, as the C entry points take them.
+struct Args {
+  const int32_t* const* banks;  // n_shards shard pointers, each int32[R, C]
+  int n_shards;
+  int64_t R, C;
+  const int32_t* row_idx;  // host int32[T*K]
+  const int32_t* shift;    // host int32[T*K]
+  int T, K, mode;
+  uint32_t and_bits;
+  const uint32_t* clause_bits;
+  int n_clauses;
+  const uint32_t* member_bits;
+  int n_members;
+  int32_t* out;  // device pointer (resolved from a host one by the entry point)
+  int64_t out_stride, first_word;
+};
+
 template <int CAP>
-int launch(bool floor, const int32_t* bank, int64_t R, int64_t C, const int32_t* row_idx,
-           const int32_t* shift, int T, int K, int mode, uint32_t and_bits,
-           const uint32_t* clause_bits, int n_clauses, const uint32_t* member_bits,
-           int n_members, int32_t* out, cudaStream_t stream) {
+int launch(bool floor, const Args& a, cudaStream_t stream) {
   static_assert(sizeof(Params<CAP>) <= 32764, "kernel parameters over 32,764 bytes");
   Params<CAP> p;
-  p.bank = bank;
-  p.out = out;
-  p.C = C;
-  p.rows_in = R > 0x7fffffff ? 0x80000000u : (uint32_t)R;
+  p.bank = a.banks[0];
+  for (int i = 0; i < MAX_SHARDS; ++i) p.shards[i] = i < a.n_shards ? a.banks[i] : a.banks[0];
+  p.out = a.out + a.first_word;
+  p.C = a.C;
+  p.words_per_shard = (uint32_t)(a.C / 32);
+  p.words = (int64_t)a.n_shards * (a.C / 32);
+  p.out_stride = a.out_stride;
+  p.rows_in = a.R > 0x7fffffff ? 0x80000000u : (uint32_t)a.R;
+  const int T = a.T;
   p.T = T;
-  p.K = K;
-  p.mode = mode;
-  const int64_t words = C / 32;
+  p.K = a.K;
+  p.mode = a.mode;
+  const int64_t words = p.words;
   int W = (BLOCK_WARPS + T - 1) / T;
   if (W > MAX_WARPS / T) W = MAX_WARPS / T;
   if (W > words) W = (int)words;
   if (W < 1) W = 1;
   p.words_per_block = W;
-  p.and_bits = and_bits & (T == 32 ? FULL_MASK : (1u << T) - 1u);
-  p.n_clauses = n_clauses;
-  p.n_members = n_members;
-  for (int i = 0; i < MAX_CLAUSES; ++i) p.clause_bits[i] = i < n_clauses ? clause_bits[i] : 0u;
-  for (int m = 0; m < MAX_MEMBERS; ++m) p.member_bits[m] = m < n_members ? member_bits[m] : 0u;
-  for (int i = 0; i < T * K + LOAD_GROUP; ++i) {
-    p.row[i] = i < T * K ? row_idx[i] : 0;
-    p.shift[i] = i < T * K ? (uint8_t)(shift[i] & 31) : 0;
+  p.and_bits = a.and_bits & (T == 32 ? FULL_MASK : (1u << T) - 1u);
+  p.n_clauses = a.n_clauses;
+  p.n_members = a.n_members;
+  for (int i = 0; i < MAX_CLAUSES; ++i)
+    p.clause_bits[i] = i < a.n_clauses ? a.clause_bits[i] : 0u;
+  for (int m = 0; m < MAX_MEMBERS; ++m)
+    p.member_bits[m] = m < a.n_members ? a.member_bits[m] : 0u;
+  for (int i = 0; i < T * a.K + LOAD_GROUP; ++i) {
+    p.row[i] = i < T * a.K ? a.row_idx[i] : 0;
+    p.shift[i] = i < T * a.K ? (uint8_t)(a.shift[i] & 31) : 0;
   }
   const int64_t blocks = (words + W - 1) / W;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
     if (floor)
       probe_floor_kernel<CAP><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
+    else if (a.n_shards > 1 || a.out_stride != a.C / 32)
+      probe_kernel<CAP, true><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
     else
-      probe_kernel<CAP><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
+      probe_kernel<CAP, false><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
 
-int dispatch(bool floor, const int32_t* bank, int64_t R, int64_t C, const int32_t* row_idx,
-             const int32_t* shift, int T, int K, int mode, uint32_t and_bits,
-             const uint32_t* clause_bits, int n_clauses, const uint32_t* member_bits,
-             int n_members, int32_t* out, void* stream) {
-  if (T < 1 || T > MAX_TERMS || K < 1 || (int64_t)T * K > CAP_MAX || C < 0 || C % 32 != 0 ||
-      C > 0x7fffffff || R < 0 || n_clauses < 0 || n_clauses > MAX_CLAUSES || n_members < 0 ||
-      n_members > MAX_MEMBERS || mode < MODE_PACK || mode > MODE_CLAUSES)
+// The address through which card `device` writes the page-locked host
+// memory at *p, in place of *p. The card's context is made current on the
+// calling thread first: a thread that has launched nothing yet may have
+// none, and then no device address is found.
+cudaError_t device_address(int device, int32_t** p) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaPointerAttributes attr;
+  err = cudaPointerGetAttributes(&attr, *p);
+  if (err != cudaSuccess) return err;
+  if (attr.type != cudaMemoryTypeHost) return cudaErrorInvalidHostPointer;
+  if (attr.devicePointer == nullptr) return cudaErrorInvalidDevicePointer;
+  *p = static_cast<int32_t*>(attr.devicePointer);
+  return cudaSuccess;
+}
+
+int dispatch(bool floor, const Args& a, void* stream) {
+  if (a.n_shards < 1 || a.n_shards > MAX_SHARDS || a.T < 1 || a.T > MAX_TERMS || a.K < 1 ||
+      (int64_t)a.T * a.K > CAP_MAX || a.C < 0 || a.C % 32 != 0 || a.C > 0x7fffffff ||
+      a.R < 0 || a.n_clauses < 0 || a.n_clauses > MAX_CLAUSES || a.n_members < 0 ||
+      a.n_members > MAX_MEMBERS || a.mode < MODE_PACK || a.mode > MODE_CLAUSES ||
+      a.first_word < 0 || a.out_stride < a.first_word + (int64_t)a.n_shards * (a.C / 32))
     return (int)cudaErrorInvalidValue;
-  const int P = T * K;
   cudaStream_t s = (cudaStream_t)stream;
-  if (P <= CAP_SMALL)
-    return launch<CAP_SMALL>(floor, bank, R, C, row_idx, shift, T, K, mode, and_bits,
-                             clause_bits, n_clauses, member_bits, n_members, out, s);
-  return launch<CAP_MAX>(floor, bank, R, C, row_idx, shift, T, K, mode, and_bits, clause_bits,
-                         n_clauses, member_bits, n_members, out, s);
+  if (a.T * a.K <= CAP_SMALL) return launch<CAP_SMALL>(floor, a, s);
+  return launch<CAP_MAX>(floor, a, s);
 }
 
 }  // namespace
@@ -285,19 +350,38 @@ int dispatch(bool floor, const int32_t* bank, int64_t R, int64_t C, const int32_
 // clause_bits and member_bits are HOST arrays: they travel by value in the
 // kernel's parameters. Each launches on `stream` and returns
 // cudaGetLastError(): 0 when the launch was accepted.
-extern "C" int bs_probe_launch(const int32_t* bank, int64_t R, int64_t C,
+//
+// bs_probe_launch covers n_shards <= MAX_SHARDS banks of one card, each
+// int32[R, C], as one bank of n_shards * C columns in shard order: output
+// word w of row r (bit i: that bank's column 32w + i) is stored at
+// out[r * out_stride + first_word + w]. One bank with out_stride = C/32 and
+// first_word = 0 is the single-device launch. With out_on_host, `out` is
+// page-locked host memory, which the kernel writes through its device
+// address on card `device` (the banks' card): memory that is not
+// page-locked (cudaErrorInvalidHostPointer) or that the card cannot
+// address (cudaErrorInvalidDevicePointer) is refused before anything is
+// launched.
+extern "C" int bs_probe_launch(const int32_t* const* banks, int n_shards, int64_t R, int64_t C,
                                const int32_t* row_idx, const int32_t* shift, int T, int K,
                                int mode, uint32_t and_bits, const uint32_t* clause_bits,
                                int n_clauses, const uint32_t* member_bits, int n_members,
-                               int32_t* out, void* stream) {
-  return dispatch(false, bank, R, C, row_idx, shift, T, K, mode, and_bits, clause_bits,
-                  n_clauses, member_bits, n_members, out, stream);
+                               int32_t* out, int64_t out_stride, int64_t first_word,
+                               int out_on_host, int device, void* stream) {
+  if (out_on_host) {
+    const cudaError_t err = device_address(device, &out);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Args a = {banks, n_shards, R, C, row_idx, shift, T, K, mode, and_bits, clause_bits,
+                  n_clauses, member_bits, n_members, out, out_stride, first_word};
+  return dispatch(false, a, stream);
 }
 
-// K1f's entry point: out is int32[T, C]. The same checks and launch shape.
+// K1f's entry point: one bank, out is int32[T, C] on the card. The same
+// checks and launch shape.
 extern "C" int bs_probe_floor_launch(const int32_t* bank, int64_t R, int64_t C,
                                      const int32_t* row_idx, const int32_t* shift, int T,
                                      int K, int32_t* out, void* stream) {
-  return dispatch(true, bank, R, C, row_idx, shift, T, K, MODE_PACK, 0u, nullptr, 0, nullptr,
-                  0, out, stream);
+  const Args a = {&bank, 1, R, C, row_idx, shift, T, K, MODE_PACK, 0u, nullptr, 0, nullptr,
+                  0, out, C / 32, 0};
+  return dispatch(true, a, stream);
 }

@@ -55,6 +55,14 @@
 //   per chunk; lane n keeps needle n's bits of the warp's chunks in a
 //   register, the loader warp ORs the compute warps' words for the tile and
 //   stores one word per needle.
+// - A card's shards in one launch (bloomsearch_tpu/parallel/mesh.py's
+//   sharded_scan_all_rows ran the dense scan on each shard under
+//   shard_map; the port's K3 wrapper, parallel/mesh.py): each range has
+//   its own base pointer, so a card's dense sharded scan is one segment
+//   launch with a range a shard, and the output's row stride and first
+//   word put the card's words where they belong in the joined bitmap of
+//   the whole mesh, which may be page-locked host memory the kernel writes
+//   through its device address.
 // Bytes are compared as unsigned 32-bit words, so chunk bytes >= 0x80 (the
 // sign bit of an int32 word) compare like any other.
 #include <cuda_runtime.h>
@@ -89,7 +97,8 @@ struct Needles {
 };
 
 struct Ranges {
-  int64_t starts[MAX_SEGS];        // first row of each range
+  const int32_t* base[MAX_SEGS];   // the stream (or shard) each range reads
+  int64_t starts[MAX_SEGS];        // first row of each range in its base
   int64_t offsets[MAX_SEGS + 1];   // first logical chunk of each range
   int32_t n;                       // 0: dense mode
 };
@@ -138,13 +147,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// First row of tile t (32 logical chunks, all in one range).
-__device__ __forceinline__ int64_t tile_row(const Ranges& rg, int64_t t) {
+// The first word of tile t (32 logical chunks, all in one range): row t*32
+// of the stream in dense mode, else the tile's row in its range's base.
+__device__ __forceinline__ const int32_t* tile_src(const Ranges& rg, const int32_t* rows,
+                                                   int64_t t) {
   const int64_t g = t * TILE_CHUNKS;
-  if (rg.n == 0) return g;
+  if (rg.n == 0) return rows + g * (CHUNK_BYTES / 4);
   int r = 0;
   while (r + 1 < rg.n && g >= rg.offsets[r + 1]) ++r;
-  return rg.starts[r] + (g - rg.offsets[r]);
+  return rg.base[r] + (rg.starts[r] + (g - rg.offsets[r])) * (CHUNK_BYTES / 4);
 }
 
 // The chunk's bytes b..b+3 against `want`, of which the first `left` bytes
@@ -200,19 +211,20 @@ __device__ __forceinline__ uint32_t verify_lane(const uint32_t* cw, const uint32
 // Loader lanes n < n_real: OR the compute warps' words of needle n for
 // tile t and store it.
 __device__ __forceinline__ void store_tile(uint32_t (*part)[COMPUTE_WARPS], int n_real,
-                                           int lane, uint32_t* out, int64_t n_tiles, int64_t t) {
+                                           int lane, uint32_t* out, int64_t out_stride,
+                                           int64_t t) {
   if (lane < n_real) {
     uint32_t w = 0;
 #pragma unroll
     for (int c = 0; c < COMPUTE_WARPS; ++c) w |= part[lane][c];
-    out[lane * n_tiles + t] = w;
+    out[lane * out_stride + t] = w;
   }
 }
 
 template <int NR>
 __global__ void __launch_bounds__(THREADS, 2) byte_scan_kernel(
     const int32_t* __restrict__ rows, int64_t n_tiles, const __grid_constant__ Needles nd,
-    const __grid_constant__ Ranges rg, uint32_t* __restrict__ out) {
+    const __grid_constant__ Ranges rg, uint32_t* __restrict__ out, int64_t out_stride) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ uint64_t full[STAGES], empty[STAGES];
   __shared__ uint32_t part[STAGES][MAX_NEEDLES][COMPUTE_WARPS];
@@ -237,19 +249,18 @@ __global__ void __launch_bounds__(THREADS, 2) byte_scan_kernel(
       const int s = (int)(k % STAGES);
       if (k >= STAGES) {
         mbar_wait(&empty[s], (uint32_t)((k / STAGES - 1) & 1));
-        store_tile(part[s], NR, lane, out, n_tiles, t - STAGES * step);
+        store_tile(part[s], NR, lane, out, out_stride, t - STAGES * step);
       }
       __syncwarp();
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], TILE_BYTES);
-        bulk_load(ring + s * TILE_BYTES, rows + tile_row(rg, t) * (CHUNK_BYTES / 4), TILE_BYTES,
-                  &full[s]);
+        bulk_load(ring + s * TILE_BYTES, tile_src(rg, rows, t), TILE_BYTES, &full[s]);
       }
     }
     for (int64_t j = k > STAGES ? k - STAGES : 0; j < k; ++j) {
       const int s = (int)(j % STAGES);
       mbar_wait(&empty[s], (uint32_t)((j / STAGES) & 1));
-      store_tile(part[s], NR, lane, out, n_tiles, blockIdx.x + j * step);
+      store_tile(part[s], NR, lane, out, out_stride, blockIdx.x + j * step);
     }
     return;
   }
@@ -308,7 +319,7 @@ int grid_cap[MAX_DEVICES][MAX_NEEDLES + 1];
 
 template <int NR>
 int launch(const int32_t* rows, int64_t chunks, const Needles& nd, const Ranges& rg,
-           int32_t* out, void* stream) {
+           int32_t* out, int64_t out_stride, void* stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -328,7 +339,7 @@ int launch(const int32_t* rows, int64_t chunks, const Needles& nd, const Ranges&
   const int64_t n_tiles = chunks / TILE_CHUNKS;
   const int64_t blocks = n_tiles < grid_cap[dev][NR] ? n_tiles : grid_cap[dev][NR];
   byte_scan_kernel<NR><<<(unsigned)blocks, THREADS, RING_BYTES, (cudaStream_t)stream>>>(
-      rows, n_tiles, nd, rg, reinterpret_cast<uint32_t*>(out));
+      rows, n_tiles, nd, rg, reinterpret_cast<uint32_t*>(out), out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -352,22 +363,50 @@ int anchor_at(const uint8_t* b, int len) {
   return best;
 }
 
+// The address through which card `device` writes the page-locked host
+// memory at *p, in place of *p. The card's context is made current on the
+// calling thread first: a thread that has launched nothing yet may have
+// none, and then no device address is found.
+cudaError_t device_address(int device, int32_t** p) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaPointerAttributes attr;
+  err = cudaPointerGetAttributes(&attr, *p);
+  if (err != cudaSuccess) return err;
+  if (attr.type != cudaMemoryTypeHost) return cudaErrorInvalidHostPointer;
+  if (attr.devicePointer == nullptr) return cudaErrorInvalidDevicePointer;
+  *p = static_cast<int32_t*>(attr.devicePointer);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. needle_bytes (uint8[n_real, 32]),
-// lens (int32[n_real]), range_starts and range_chunks (int64[n_ranges])
-// are HOST arrays that travel by value in the kernel's parameters. chunks
-// is the logical chunk count (rows in dense mode, the sum of range_chunks
-// in segment mode) and a multiple of 32, as is each range's count;
-// rows_total bounds the ranges. Launches on `stream` and returns
-// cudaGetLastError() (or the error of a setup call): 0 when the launch was
-// accepted.
+// lens (int32[n_real]), range_bases, range_starts and range_chunks
+// (n_ranges each) are HOST arrays that travel by value in the kernel's
+// parameters. chunks is the logical chunk count (rows in dense mode, the
+// sum of range_chunks in segment mode) and a multiple of 32, as is each
+// range's count. Range r reads rows [range_starts[r], + range_chunks[r])
+// of range_bases[r] (of `rows` when range_bases is null), each base
+// holding rows_total rows; so the ranges may lie in different shards of
+// one card, and one launch scans all of them. Output word w of needle n is
+// stored at out[n * out_stride + first_word + w]. With out_on_host, `out`
+// is page-locked host memory, which the kernel writes through its device
+// address on card `device` (the stream's card): memory that is not
+// page-locked (cudaErrorInvalidHostPointer) or that the card cannot
+// address (cudaErrorInvalidDevicePointer) is refused before anything is
+// launched. Launches on
+// `stream` and returns cudaGetLastError() (or the error of a setup call):
+// 0 when the launch was accepted.
 extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t chunks,
                               const uint8_t* needle_bytes, const int32_t* lens, int n_real,
-                              const int64_t* range_starts, const int64_t* range_chunks,
-                              int n_ranges, int32_t* out, void* stream) {
+                              const int32_t* const* range_bases, const int64_t* range_starts,
+                              const int64_t* range_chunks, int n_ranges, int32_t* out,
+                              int64_t out_stride, int64_t first_word, int out_on_host,
+                              int device, void* stream) {
   if (chunks <= 0 || chunks % TILE_CHUNKS != 0 || n_real < 1 || n_real > MAX_NEEDLES ||
-      n_ranges < 0 || n_ranges > MAX_SEGS)
+      n_ranges < 0 || n_ranges > MAX_SEGS || first_word < 0 ||
+      out_stride < first_word + chunks / TILE_CHUNKS)
     return (int)cudaErrorInvalidValue;
   Needles nd = {};
   for (int n = 0; n < n_real; ++n) {
@@ -392,6 +431,7 @@ extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t c
       if (range_chunks[r] <= 0 || range_chunks[r] % TILE_CHUNKS != 0 || range_starts[r] < 0 ||
           range_starts[r] + range_chunks[r] > rows_total)
         return (int)cudaErrorInvalidValue;
+      rg.base[r] = range_bases != nullptr ? range_bases[r] : rows;
       rg.starts[r] = range_starts[r];
       rg.offsets[r] = off;
       off += range_chunks[r];
@@ -401,15 +441,20 @@ extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t c
   } else if (chunks > rows_total) {
     return (int)cudaErrorInvalidValue;
   }
+  if (out_on_host) {
+    const cudaError_t err = device_address(device, &out);
+    if (err != cudaSuccess) return (int)err;
+  }
+  out += first_word;
 
   switch (n_real) {
-    case 1: return launch<1>(rows, chunks, nd, rg, out, stream);
-    case 2: return launch<2>(rows, chunks, nd, rg, out, stream);
-    case 3: return launch<3>(rows, chunks, nd, rg, out, stream);
-    case 4: return launch<4>(rows, chunks, nd, rg, out, stream);
-    case 5: return launch<5>(rows, chunks, nd, rg, out, stream);
-    case 6: return launch<6>(rows, chunks, nd, rg, out, stream);
-    case 7: return launch<7>(rows, chunks, nd, rg, out, stream);
-    default: return launch<8>(rows, chunks, nd, rg, out, stream);
+    case 1: return launch<1>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 2: return launch<2>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 3: return launch<3>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 4: return launch<4>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 5: return launch<5>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 6: return launch<6>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 7: return launch<7>(rows, chunks, nd, rg, out, out_stride, stream);
+    default: return launch<8>(rows, chunks, nd, rg, out, out_stride, stream);
   }
 }

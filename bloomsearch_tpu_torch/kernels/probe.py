@@ -22,15 +22,22 @@ arrays or CPU tensors, whatever the bank's device:
 One launch takes at most ``MAX_TERMS`` (32) terms and ``MAX_PROBES`` (6,400)
 probes T*K: the probes travel in one kernel parameter struct, and 6,400 of
 them (four bytes of row and one of shift each, plus 16 spare) with the
-epilogue masks fill 32,392 of the 32,764 bytes that CUDA 12.1 and later
-allow a launch's parameters. Rows are any int32; a row outside [0, R) reads
-0.
+epilogue masks and the shard table fill 32,480 of the 32,764 bytes that
+CUDA 12.1 and later allow a launch's parameters. Rows are any int32; a row
+outside [0, R) reads 0.
 
 Outputs are packed ``int32[rows, C/32]`` words: bit i of word w is column
 32w+i (the JAX package's ``pack_bitmap`` contract, read as uint32 on the
 host). Clause and member masks are bit masks: bit t of ``clause_bits[i]``
 puts term t in clause i, bit i of ``member_bits[m]`` puts clause i in
 member m.
+
+``probe_shards_into`` is the launch under the sharded wrappers (K3,
+``parallel/mesh.py``): one launch covers up to ``MAX_SHARDS`` banks of one
+card, all ``[R, C]``, as one bank of their columns side by side, and
+stores its words at a given first word of each row of an output that may
+be wider (the joined bitmap of a whole mesh) and may be page-locked host
+memory, which the kernel then writes through its device address.
 
 ``probe_floor`` (K1f) is the probe's access-pattern floor: K1's launch
 shape (its warps and blocks, its by-value probes), loads and row check with
@@ -59,6 +66,8 @@ MAX_TERMS = 32  # a block holds the warps of every term of its words: <= 32 warp
 MAX_CLAUSES = 32
 MAX_MEMBERS = 32
 MAX_PROBES = 6400  # T*K: csrc/probe.cu CAP_MAX, the kernel's parameters (module doc)
+MAX_SHARDS = 8  # banks one launch covers: csrc/probe.cu MAX_SHARDS
+EPILOGUE_MODES = {"pack": MODE_PACK, "reduce_and": MODE_REDUCE, "clauses": MODE_CLAUSES}
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -151,7 +160,9 @@ def bind(path: str) -> ctypes.CDLL:
     points."""
     lib = ctypes.CDLL(path)
     p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
-    lib.bs_probe_launch.argtypes = [p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p]
+    lib.bs_probe_launch.argtypes = [
+        p, i32, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, i64, i64, i32, i32, p,
+    ]
     lib.bs_probe_launch.restype = ctypes.c_int
     lib.bs_probe_floor_launch.argtypes = [p, i64, i64, p, p, i32, i32, p, p]
     lib.bs_probe_floor_launch.restype = ctypes.c_int
@@ -208,24 +219,32 @@ def _bits(values: Sequence[int], limit: int, what: str) -> tuple:
     return (ctypes.c_uint32 * max(len(values), 1))(*values), len(values)
 
 
-def _launch(bank, row_idx: np.ndarray, shift: np.ndarray, T, K, mode, out_rows,
+def _launch(banks: Sequence[torch.Tensor], row_idx: np.ndarray, shift: np.ndarray, T, K,
+            mode, out_rows: int, out: Optional[torch.Tensor] = None, first_word: int = 0,
             and_bits=0, clause_bits=(), member_bits=()) -> torch.Tensor:
-    """One kernel launch on the bank's device with the host probe arrays in
-    its parameters -> the packed int32[out_rows, C/32] output. Counts
-    nothing (the wrappers count)."""
+    """One kernel launch over ``banks`` (checked by the caller: one card,
+    one shape) on their card's current stream with the host probe arrays in
+    its parameters, storing word w of each output row at ``out[row,
+    first_word + w]``; ``out`` lies on that card or in page-locked host
+    memory, or is None for a new int32[out_rows, C/32] on the card ->
+    ``out``. Counts nothing (the wrappers count)."""
+    bank = banks[0]
     if bank.device.type != "cuda":
         raise ValueError(f"the probe kernel runs on CUDA tensors, got {bank.device}")
     R, C = bank.shape
     clauses, n_clauses = _bits(clause_bits, MAX_CLAUSES, "clauses")
     members, n_members = _bits(member_bits, MAX_MEMBERS, "members")
+    table = (ctypes.c_void_p * len(banks))(*[b.data_ptr() for b in banks])
     lib = library()
     with torch.cuda.device(bank.device):
-        out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
+        if out is None:
+            out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
         stream = torch.cuda.current_stream(bank.device).cuda_stream
         err = lib.bs_probe_launch(
-            bank.data_ptr(), R, C, row_idx.ctypes.data, shift.ctypes.data, T, K, mode,
+            table, len(banks), R, C, row_idx.ctypes.data, shift.ctypes.data, T, K, mode,
             int(and_bits) & 0xFFFFFFFF, clauses, n_clauses, members, n_members,
-            out.data_ptr(), stream,
+            out.data_ptr(), out.shape[1], first_word, out.device.type == "cpu",
+            bank.device.index, stream,
         )
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: cudaError {err}")
@@ -319,7 +338,7 @@ def probe_and_pack(bank, row_idx, shift, T: int, K: int) -> torch.Tensor:
     rows, shifts = _check(bank, row_idx, shift, T, K)
     if bank.device.type == "cpu":
         return pack_bitmap_plain(_plain_match(bank, rows, shifts, T, K))
-    out = _launch(bank, rows, shifts, T, K, MODE_PACK, T)
+    out = _launch((bank,), rows, shifts, T, K, MODE_PACK, T)
     _count("pack", bank.shape[1], T, T)
     return out
 
@@ -332,7 +351,7 @@ def probe_reduce_and_pack(bank, row_idx, shift, T: int, K: int,
     if bank.device.type == "cpu":
         match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(reduce_and_plain(match, and_bits))
-    out = _launch(bank, rows, shifts, T, K, MODE_REDUCE, 1, and_bits=and_bits)
+    out = _launch((bank,), rows, shifts, T, K, MODE_REDUCE, 1, and_bits=and_bits)
     _count("reduce_and", bank.shape[1], T, 1)
     return out
 
@@ -348,11 +367,66 @@ def probe_clauses_pack(bank, row_idx, shift, T: int, K: int,
         match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(clauses_plain(match, clause_bits, member_bits))
     out = _launch(
-        bank, rows, shifts, T, K, MODE_CLAUSES, len(member_bits),
+        (bank,), rows, shifts, T, K, MODE_CLAUSES, len(member_bits),
         clause_bits=clause_bits, member_bits=member_bits,
     )
     _count("clauses", bank.shape[1], T, len(member_bits), len(clause_bits))
     return out
+
+
+def probe_shards_into(out: torch.Tensor, first_word: int, banks: Sequence[torch.Tensor],
+                      row_idx, shift, T: int, K: int, epilogue: str, and_bits: int = 0,
+                      clause_bits: Sequence[int] = (),
+                      member_bits: Sequence[int] = ()) -> None:
+    """Probe up to ``MAX_SHARDS`` banks of one device, all ``int32[R, C]``,
+    as one bank of their columns in order, with an epilogue of
+    ``EPILOGUE_MODES`` (its arguments as ``probe_reduce_and_pack`` and
+    ``probe_clauses_pack`` take them); bank i's packed words land at
+    ``out[:, first_word + i*C/32 : first_word + (i+1)*C/32]``, ``out``
+    being ``int32[T or 1 or M, >= first_word + len(banks)*C/32]``.
+
+    On CUDA banks: one launch on their card, counted once under the
+    epilogue at the launch's width ``len(banks)*C``; ``out`` lies on that
+    card or in page-locked host memory the card can address, else the
+    launch raises. On CPU banks: the plain version, bank by bank, into the
+    same slices (counted nowhere)."""
+    if epilogue not in EPILOGUE_MODES:
+        raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUE_MODES)}")
+    if not 1 <= len(banks) <= MAX_SHARDS:
+        raise ValueError(f"{len(banks)} banks: one launch takes 1..{MAX_SHARDS}")
+    bank = banks[0]
+    rows, shifts = _check(bank, row_idx, shift, T, K)
+    R, C = bank.shape
+    for b in banks:
+        if (b.shape != bank.shape or b.dtype != bank.dtype or b.device != bank.device
+                or not b.is_contiguous()):
+            raise ValueError("the banks of one launch must be contiguous tensors of one "
+                             "shape, type and device")
+    words = C // 32
+    out_rows = {"pack": T, "reduce_and": 1}.get(epilogue, len(member_bits))
+    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != out_rows or first_word < 0
+            or out.shape[1] < first_word + len(banks) * words):
+        raise ValueError(f"out must be a contiguous int32[{out_rows}, >= "
+                         f"{first_word + len(banks) * words}] tensor")
+    if epilogue == "clauses" and (len(clause_bits) > MAX_CLAUSES
+                                  or len(member_bits) > MAX_MEMBERS):
+        raise ValueError("too many clauses or members for one launch")
+    if bank.device.type == "cpu":
+        for i, b in enumerate(banks):
+            match = _plain_match(b, rows, shifts, T, K)
+            if epilogue == "reduce_and":
+                match = reduce_and_plain(match, and_bits)
+            elif epilogue == "clauses":
+                match = clauses_plain(match, clause_bits, member_bits)
+            at = first_word + i * words
+            out[:, at : at + words] = pack_bitmap_plain(match)
+        return
+    if out.device.type != "cpu" and out.device != bank.device:
+        raise ValueError(f"out is on {out.device}, the banks on {bank.device}")
+    _launch(banks, rows, shifts, T, K, EPILOGUE_MODES[epilogue], out_rows, out, first_word,
+            and_bits=and_bits, clause_bits=clause_bits, member_bits=member_bits)
+    _count(epilogue, len(banks) * C, T, out_rows, len(clause_bits))
 
 
 def probe_floor(bank, row_idx, shift, T: int, K: int,

@@ -21,6 +21,14 @@ Outputs are packed ``int32[n_real, chunks/32]`` words: bit i of word w of
 row n is set iff needle n occurs at a start < 480 of logical chunk 32w+i
 (the JAX package's ``pack_bitmap`` contract, read as uint32 on the host).
 A needle of length 0 matches every chunk.
+
+``byte_scan_shards_into`` is the launch under the sharded scan (K3,
+``parallel/mesh.py``): up to ``MAX_SEGMENTS`` equal stream shards of one
+card in one segment-mode launch, a range a shard (each range has its own
+base pointer), with its words stored at a given first word of each row of
+an output that may be wider (the joined bitmap of a whole mesh) and may be
+page-locked host memory, which the kernel then writes through its device
+address.
 """
 
 from __future__ import annotations
@@ -65,7 +73,8 @@ _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
 _launches = {"stream": 0, "segments": 0}
 # (mode, logical chunks G, n_real, n_segs, range chunk counts, word bucket)
-# -> launches; the range counts are () in stream mode.
+# -> launches; the range counts are () in stream mode, the shards' row
+# counts in a sharded stream launch (byte_scan_shards_into).
 _shapes: dict[tuple[str, int, int, int, tuple[int, ...], int], int] = {}
 
 
@@ -115,7 +124,8 @@ def library() -> ctypes.CDLL:
             build_library()
             lib = ctypes.CDLL(LIBRARY)
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, p, i32, p, p]
+            lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, p, p, i32, p, i64, i64,
+                                           i32, i32, p]
             lib.bs_scan_launch.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -202,22 +212,31 @@ def byte_scan_plain(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
 
 
 def _launch(rows32: torch.Tensor, needle_bytes: np.ndarray, lens: np.ndarray,
-            chunks: int, starts: Sequence[int], range_chunks: Sequence[int]) -> torch.Tensor:
+            chunks: int, starts: Sequence[int], range_chunks: Sequence[int],
+            out: Optional[torch.Tensor] = None, first_word: int = 0,
+            bases: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """One launch on ``rows32``'s card: dense (no ranges) or over the
+    ranges (each in its own base of ``bases``, else in ``rows32``), into
+    ``out`` from ``first_word`` on (a new int32[n_real, chunks/32] on the
+    card when None) -> ``out``. Counts nothing (the wrappers count)."""
     if rows32.device.type != "cuda":
         raise ValueError(f"the scan kernel runs on CUDA tensors, got {rows32.device}")
     n_real = needle_bytes.shape[0]
     seg = np.ascontiguousarray(starts, dtype=np.int64).reshape(-1)
     counts = np.ascontiguousarray(range_chunks, dtype=np.int64).reshape(-1)
+    table = (ctypes.c_void_p * len(bases))(*[b.data_ptr() for b in bases]) if bases else None
     lib = library()
     with torch.cuda.device(rows32.device):
-        out = torch.empty((n_real, chunks // 32), dtype=torch.int32, device=rows32.device)
+        if out is None:
+            out = torch.empty((n_real, chunks // 32), dtype=torch.int32, device=rows32.device)
         stream = torch.cuda.current_stream(rows32.device).cuda_stream
         err = lib.bs_scan_launch(
             rows32.data_ptr(), rows32.shape[0], chunks,
-            needle_bytes.ctypes.data, lens.ctypes.data, n_real,
+            needle_bytes.ctypes.data, lens.ctypes.data, n_real, table,
             seg.ctypes.data if seg.size else None,
             counts.ctypes.data if counts.size else None, seg.size,
-            out.data_ptr(), stream,
+            out.data_ptr(), out.shape[1], first_word, out.device.type == "cpu",
+            rows32.device.index, stream,
         )
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: cudaError {err}")
@@ -254,3 +273,48 @@ def byte_scan_segments(rows32: torch.Tensor, seg_starts: Sequence[int],
     out = _launch(rows32, needle_bytes, real_lens, sum(counts), starts, counts)
     _count("segments", sum(counts), n_real, counts, max_words)
     return out
+
+
+def byte_scan_shards_into(out: torch.Tensor, first_word: int, shards: Sequence[torch.Tensor],
+                          needles: np.ndarray, lens: np.ndarray, *, n_real: int,
+                          max_words: int) -> None:
+    """Dense mode over up to ``MAX_SEGMENTS`` stream shards of one device,
+    all ``int32[rows, 128]``, as one stream of their rows in order: shard
+    i's packed words land at ``out[:, first_word + i*rows/32 : first_word +
+    (i+1)*rows/32]``, ``out`` being ``int32[n_real, >= first_word +
+    len(shards)*rows/32]``.
+
+    On CUDA shards: one segment-mode launch on their card, a range a shard
+    read in place, counted once as a dense (``stream``) launch whose shape
+    key holds the launch's chunk count and the shards' row counts;
+    ``out`` lies on that card or in page-locked host memory the card can
+    address, else the launch raises. On CPU shards: the plain version,
+    shard by shard, into the same slices (counted nowhere)."""
+    if not 1 <= len(shards) <= MAX_SEGMENTS:
+        raise ValueError(f"{len(shards)} shards: one launch takes 1..{MAX_SEGMENTS}")
+    first = shards[0]
+    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
+    G = first.shape[0]
+    if G == 0 or G % 32:
+        raise ValueError(f"a shard's rows must be a positive multiple of 32, got {G}")
+    for s in shards:
+        if s.shape != first.shape or s.dtype != first.dtype or s.device != first.device \
+                or not s.is_contiguous():
+            raise ValueError("the shards of one launch must be contiguous tensors of one "
+                             "shape, type and device")
+    words = G // 32
+    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != n_real or first_word < 0
+            or out.shape[1] < first_word + len(shards) * words):
+        raise ValueError(f"out must be a contiguous int32[{n_real}, >= "
+                         f"{first_word + len(shards) * words}] tensor")
+    if first.device.type == "cpu":
+        for i, s in enumerate(shards):
+            at = first_word + i * words
+            out[:, at : at + words] = byte_scan_plain(s, needle_bytes, real_lens, n_real)
+        return
+    if out.device.type != "cpu" and out.device != first.device:
+        raise ValueError(f"out is on {out.device}, the shards on {first.device}")
+    n = len(shards)
+    _launch(first, needle_bytes, real_lens, n * G, [0] * n, [G] * n, out, first_word, shards)
+    _count("stream", n * G, n_real, [G] * n, max_words)

@@ -14,20 +14,22 @@ in a mesh built by hand (several shards on one card); every shard is still
 its own tensor. With ``mesh=None`` every helper works on one plain tensor,
 the single-device layout.
 
-The sharded wrappers have no kernel body of their own. Each launches the
-port's existing kernel (``csrc/probe.cu`` in the epilogue's mode, or
-``csrc/scan.cu`` in dense mode) on every shard, on that shard's device and
-its current stream, before it copies anything back (the probe arrays and
-the needles are host arrays that travel in each launch's parameters, so
-nothing is copied to the cards first); then it copies each
-shard's packed bitmap to the host and joins them along the word axis in
-shard order. That join is bit-for-bit the unsharded kernel's output because
-every shard is a contiguous range whose width is a multiple of 32 (128·n
-columns, 512·n chunks). The mesh is one process driving every device, so no
+The sharded wrappers group the shards by card (``card_layout``) and make
+one launch a card over all of its shards (``csrc/probe.cu`` in the
+epilogue's mode with a table of shard pointers, or ``csrc/scan.cu`` in
+segment mode with a range a shard), every card's launch issued before any
+is waited for. Each launch stores its words straight into one joined
+bitmap, a page-locked host buffer taken per call from torch's pinned
+allocator, at the word offset of its first shard; the caller then waits on
+one event a card. That bitmap is bit-for-bit the unsharded kernel's output
+because every shard is a contiguous range whose width is a multiple of 32
+(128·n columns, 512·n chunks). The probe arrays and needles are host
+arrays that travel in each launch's parameters, so nothing is copied to
+the cards first. The mesh is one process driving every device, so no
 ``torch.distributed`` collective is needed: the survivor total that the
-reference ``psum``s is the sum of the per-shard counts. Which kernel or plain
-version runs follows each shard tensor's device, as the unsharded wrappers'
-rule has it (``kernels/probe.py``, ``kernels/scan.py``).
+reference ``psum``s is one popcount of the joined words. On CPU shards
+the same layout runs the plain versions shard by shard into the same
+slices of the joined output (``kernels/probe.py``, ``kernels/scan.py``).
 
 The maintenance helpers keep both axes sharded through growth, inserts and
 compaction, which the reference left to XLA's implicit re-split: a column
@@ -47,8 +49,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..kernels.probe import probe_and_pack, probe_clauses_pack, probe_reduce_and_pack
-from ..kernels.scan import CHUNK_BYTES, byte_scan_stream
+from ..kernels.probe import MAX_SHARDS, probe_shards_into
+from ..kernels.scan import CHUNK_BYTES, MAX_SEGMENTS, byte_scan_shards_into
 
 BLOCK_AXIS = "blocks"
 LANE = 128  # bank columns per shard unit (the JAX package's lane tile)
@@ -296,7 +298,7 @@ _launches = {
 
 def launch_counts() -> dict[str, int]:
     """Sharded calls that launched their kernel on CUDA shards since the
-    last reset (each shard's launch also counts in its kernel module)."""
+    last reset (each card's launch also counts in its kernel module)."""
     with _count_lock:
         return dict(_launches)
 
@@ -313,45 +315,74 @@ def _count(name: str, shards: tuple) -> None:
             _launches[name] += 1
 
 
-def _to_host(parts: list) -> list:
-    """Each shard's bitmap (every shard launched first) to the host. The
-    copies from every card are queued before any is waited for, into
-    page-locked buffers so each runs as a DMA on its card's current stream.
-    With one blocking copy to pageable memory per shard, a sharded scan
-    over four H100 cards (0.9 MB of bitmap a shard) took 53 ms, its shard
-    launches 0.82 ms."""
-    host = []
-    for p in parts:
-        if p.device.type == "cuda":
-            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-            h.copy_(p, non_blocking=True)
-            p = h
-        host.append(p)
-    for dev in dict.fromkeys(p.device for p in parts if p.device.type == "cuda"):
-        torch.cuda.current_stream(dev).synchronize()
-    return host
+@dataclasses.dataclass(frozen=True)
+class CardShards:
+    """One device's part of a sharded call: its shards (mesh positions, in
+    mesh order), each shard's first word in the joined output, and the
+    launches that cover them (runs of consecutive positions, at most the
+    kernel's table capacity each)."""
+
+    device: torch.device
+    shards: tuple
+    offsets: tuple
+    launches: tuple
 
 
-def _join(parts: list) -> torch.Tensor:
-    """The shards' bitmaps joined on the host along the word axis, in
-    shard order."""
-    return torch.cat(_to_host(parts), dim=-1)
+def card_layout(x: Sharded, axis: int, capacity: int) -> list[CardShards]:
+    """Group ``x``'s shards by the device they lie on, in the order the
+    devices first appear (``Mesh.distinct_devices`` for shards placed on a
+    mesh). Shard i's words start at ``i * width/32`` of the joined output
+    (``width``: a shard's length along ``axis``, a multiple of 32); a
+    launch covers up to ``capacity`` shards that are neighbours in the mesh,
+    so its words are one run of the output."""
+    shards = _shards(x)
+    width = _width(shards, axis)
+    if width % 32:
+        raise ValueError(f"a shard's width {width} is not a multiple of 32")
+    groups: dict = {}
+    for i, s in enumerate(shards):
+        groups.setdefault(s.device, []).append(i)
+    out = []
+    for dev, positions in groups.items():
+        runs: list[list[int]] = []
+        for i in positions:
+            if runs and runs[-1][-1] == i - 1 and len(runs[-1]) < capacity:
+                runs[-1].append(i)
+            else:
+                runs.append([i])
+        out.append(CardShards(dev, tuple(positions), tuple(i * (width // 32) for i in positions),
+                              tuple(tuple(r) for r in runs)))
+    return out
 
 
-def _probe_shards(bank: Sharded, row_idx, shift, launch) -> list:
-    """Launch on every shard with the same host probe arrays, which travel
-    in each launch's parameters (no copy to any card)."""
-    return [launch(s, row_idx, shift) for s in _shards(bank)]
+def _joined_call(x: Sharded, axis: int, out_rows: int, capacity: int, launch) -> torch.Tensor:
+    """The joined int32[out_rows, logical/32] bitmap of ``launch(out,
+    first_word, shards)`` over every launch of ``card_layout``: every
+    card's launches issued first, then one event a card waited for. On
+    cards the output is page-locked host memory the kernels write."""
+    shards = _shards(x)
+    layout = card_layout(x, axis, capacity)
+    on_cards = shards[0].device.type == "cuda"
+    out = torch.empty((out_rows, logical_size(x, axis) // 32), dtype=torch.int32,
+                      pin_memory=on_cards)
+    done = []
+    for card in layout:
+        for run in card.launches:
+            launch(out, card.offsets[card.shards.index(run[0])], [shards[i] for i in run])
+        if on_cards:
+            done.append(torch.cuda.current_stream(card.device).record_event())
+    for event in done:
+        event.synchronize()
+    return out
 
 
 def sharded_probe_packed(mesh: Mesh, bank2d: Sharded, row_idx, shift, T: int,
                          K: int) -> torch.Tensor:
     """Probe every shard's blocks -> packed int32[T, C/32] on the host."""
-    parts = _probe_shards(
-        bank2d, row_idx, shift, lambda b, r, s: probe_and_pack(b, r, s, T, K)
-    )
+    out = _joined_call(bank2d, 1, T, MAX_SHARDS, lambda o, w, banks: probe_shards_into(
+        o, w, banks, row_idx, shift, T, K, "pack"))
     _count("sharded_probe_packed", _shards(bank2d))
-    return _join(parts)
+    return out
 
 
 def sharded_query_step(mesh: Mesh, bank2d: Sharded, row_idx, shift, and_bits: int,
@@ -360,18 +391,13 @@ def sharded_query_step(mesh: Mesh, bank2d: Sharded, row_idx, shift, and_bits: in
     (terms outside it count as true) and the survivor total.
 
     Returns (packed survivors int32[C/32] on the host, total survivors):
-    the total is the sum of the per-shard popcounts, the reference's
+    the total is one popcount of the joined words, the reference's
     ``psum``."""
-    parts = _probe_shards(
-        bank2d, row_idx, shift,
-        lambda b, r, s: probe_reduce_and_pack(b, r, s, T, K, and_bits)[0],
-    )
+    out = _joined_call(bank2d, 1, 1, MAX_SHARDS, lambda o, w, banks: probe_shards_into(
+        o, w, banks, row_idx, shift, T, K, "reduce_and", and_bits=and_bits))
     _count("sharded_query_step", _shards(bank2d))
-    host = _to_host(parts)
-    total = sum(
-        int(np.unpackbits(p.numpy().view(np.uint8)).sum()) for p in host
-    )
-    return torch.cat(host), total
+    total = int(np.unpackbits(out.numpy().view(np.uint8)).sum())
+    return out[0], total
 
 
 def sharded_probe_clauses(mesh: Mesh, bank2d: Sharded, row_idx, shift,
@@ -379,12 +405,12 @@ def sharded_probe_clauses(mesh: Mesh, bank2d: Sharded, row_idx, shift,
                           T: int, K: int) -> torch.Tensor:
     """Probe and the fused CNF epilogue on every shard -> packed
     int32[M, C/32] on the host (bit masks as in ``probe_clauses_pack``)."""
-    parts = _probe_shards(
-        bank2d, row_idx, shift,
-        lambda b, r, s: probe_clauses_pack(b, r, s, T, K, clause_bits, member_bits),
-    )
+    out = _joined_call(
+        bank2d, 1, len(member_bits), MAX_SHARDS, lambda o, w, banks: probe_shards_into(
+            o, w, banks, row_idx, shift, T, K, "clauses", clause_bits=clause_bits,
+            member_bits=member_bits))
     _count("sharded_probe_clauses", _shards(bank2d))
-    return _join(parts)
+    return out
 
 
 def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,
@@ -395,12 +421,11 @@ def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,
 
     The dense stream mode only (480 payload bytes a chunk, what the row
     cache scans): chunk overlap bytes are duplicated into each chunk at
-    pack time, so shard boundaries need no halo exchange. Needles travel
-    as kernel arguments from the host."""
-    shards = _shards(rows32)
-    parts = [
-        byte_scan_stream(s, needles, lens, n_real=n_real, max_words=max_words)
-        for s in shards
-    ]
-    _count("sharded_scan_all_rows", shards)
-    return _join(parts)
+    pack time, so shard boundaries need no halo exchange. A card's shards
+    are one launch of up to 4 ranges (``MAX_SEGMENTS``); needles travel as
+    kernel arguments from the host."""
+    out = _joined_call(rows32, 0, n_real, MAX_SEGMENTS, lambda o, w, shards: (
+        byte_scan_shards_into(o, w, shards, needles, lens, n_real=n_real,
+                              max_words=max_words)))
+    _count("sharded_scan_all_rows", _shards(rows32))
+    return out

@@ -1,0 +1,543 @@
+"""Experiment: the sharded wrappers (K3) against their earlier per-shard
+launch-and-join form, and the two ways to land a card's words in the
+joined bitmap, with a breakdown of each call.
+
+Three forms of each sharded call, all bit-identical:
+
+- ``old``, the earlier per-shard form (kept here, not in the package):
+  the single-device kernel once per shard, each into its own device output, each shard's
+  bitmap copied into a new page-locked buffer, every card's whole current
+  stream synchronised, the buffers joined on the host with ``torch.cat``;
+- ``mapped``, the package's (``parallel/mesh.py``): one launch a card over
+  all of its shards (``card_layout``), storing straight into one
+  page-locked joined buffer through its device address, one event a card
+  waited for;
+- ``copy``: the same launches into a device buffer a launch, each copied
+  to its offset of the page-locked joined buffer by one strided
+  ``cudaMemcpy2DAsync`` (built here from a few lines of CUDA C into a
+  temporary directory), then one event a card.
+
+At the main path's shapes on a 4-shard mesh (the refscale bank, R =
+1,347,900 rows of 4 x 128 columns; the refscale stream, 4 x 900,096 chunks)
+each form's call is timed as a caller sees it (host clock between
+synchronisations of every card), the forms in turns (old, mapped, copy,
+copy, mapped, old), and each is split into:
+
+- ``issue_ms``: host time from the call's start until its last launch is
+  enqueued, and ``issue_per_launch_ms`` over its launches;
+- per card, ``span_ms`` from the first launch's start to the last one's end
+  and ``busy_ms``, the sum of the launches' own spans (CUDA events; a
+  launch the host has not yet issued leaves the stream idle inside them);
+- per card, ``copy_ms`` of the copies to the host (CUDA events);
+- ``copy_issue_ms``: host time spent taking buffers and queueing copies;
+- ``wait_ms``: host time spent waiting for the cards;
+- ``join_ms``: host time of the join.
+
+Events around every launch cost host time, so the breakdown is taken in
+calls of its own, not in the timed ones. Data is random, made on the card
+from the seed; ``chip_smoke.py`` runs the same turns on the engine's
+resident refscale state.
+
+Usage::
+
+    python -m bloomsearch_tpu_torch.tools.exp_mesh_join [--device cuda]
+        [--shards 4] [--reps 25] [--out PATH]
+
+With one card the shards all lie on it; with as many cards as shards the
+tool also runs a mesh of distinct cards. There is no CPU form: the tool
+raises when no card is visible.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import os
+import statistics
+import tempfile
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from ..kernels import probe as pk
+from ..kernels import scan as ks
+from ..parallel import mesh as pm
+from .timing import card, resolve_device
+
+REFSCALE_ROWS = 1_347_900  # 3 keyspaces x 449,300 words
+SHARD_COLUMNS = 128
+SHARD_CHUNKS = 900_096  # the refscale stream (3,600,384 chunks) over 4 shards
+K = 10
+CLAUSES = [0b0011, 0b1100]  # the OR tree's two clauses of two terms, one member
+MEMBERS = [0b11]
+FORMS = ("old", "mapped", "copy")
+COPY_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// rows rows of width bytes from a device buffer to host memory, on stream.
+extern "C" int copy_rows_to_host(void* dst, int64_t dst_pitch, const void* src,
+                                 int64_t src_pitch, int64_t width, int64_t rows,
+                                 void* stream) {
+  return (int)cudaMemcpy2DAsync(dst, dst_pitch, src, src_pitch, width, rows,
+                                cudaMemcpyDeviceToHost, (cudaStream_t)stream);
+}
+"""
+
+
+def log(msg: str) -> None:
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+# -- the cases -------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Case:
+    """One sharded call: its shards (one tensor per mesh position), their
+    sharded axis, the output rows, the launch table's capacity, the
+    single-device kernel on one shard (the ``old`` form), one launch over a
+    card's shards into an output (``into(out, first_word, shards)``) and the
+    package's wrapper."""
+
+    label: str
+    shards: tuple
+    axis: int
+    out_rows: int
+    capacity: int
+    single: Callable
+    into: Callable
+    wrapper: Callable
+
+
+def probe_case(label: str, mesh, shards: tuple, epilogue: str, rows, shifts, T: int,
+               k: int = K, clause_bits=CLAUSES, member_bits=MEMBERS) -> Case:
+    """A sharded probe (``epilogue``: pack, reduce_and or clauses; reduce
+    ANDs every term)."""
+    and_bits = (1 << T) - 1
+    extra = {"pack": {}, "reduce_and": {"and_bits": and_bits},
+             "clauses": {"clause_bits": clause_bits, "member_bits": member_bits}}[epilogue]
+    if epilogue == "pack":
+        single = lambda b: pk.probe_and_pack(b, rows, shifts, T, k)  # noqa: E731
+        wrapper = lambda: pm.sharded_probe_packed(mesh, shards, rows, shifts, T, k)  # noqa: E731
+    elif epilogue == "reduce_and":
+        single = lambda b: pk.probe_reduce_and_pack(b, rows, shifts, T, k, and_bits)  # noqa: E731
+        wrapper = lambda: pm.sharded_query_step(  # noqa: E731
+            mesh, shards, rows, shifts, and_bits, T, k)[0][None, :]
+    else:
+        single = lambda b: pk.probe_clauses_pack(  # noqa: E731
+            b, rows, shifts, T, k, clause_bits, member_bits)
+        wrapper = lambda: pm.sharded_probe_clauses(  # noqa: E731
+            mesh, shards, rows, shifts, clause_bits, member_bits, T, k)
+    out_rows = {"pack": T, "reduce_and": 1}.get(epilogue, len(member_bits))
+    return Case(label, shards, 1, out_rows, pk.MAX_SHARDS, single,
+                lambda o, w, b: pk.probe_shards_into(o, w, b, rows, shifts, T, k, epilogue,
+                                                     **extra), wrapper)
+
+
+def scan_case(label: str, mesh, shards: tuple, needles, lens, n_real: int,
+              max_words: int = 9) -> Case:
+    """A sharded dense scan."""
+    kw = dict(n_real=n_real, max_words=max_words)
+    return Case(label, shards, 0, n_real, ks.MAX_SEGMENTS,
+                lambda s: ks.byte_scan_stream(s, needles, lens, **kw),
+                lambda o, w, s: ks.byte_scan_shards_into(o, w, s, needles, lens, **kw),
+                lambda: pm.sharded_scan_all_rows(mesh, shards, needles, lens, **kw))
+
+
+# -- the three forms, with an optional trace ---------------------------------------
+
+
+class Trace:
+    """Host clock marks and CUDA event pairs of one call (``breakdown``)."""
+
+    def __init__(self):
+        self.t = {"start": time.perf_counter()}
+        self.launches: list = []  # (device, start event, end event)
+        self.copies: list = []
+
+    def mark(self, name: str) -> None:
+        self.t[name] = time.perf_counter()
+
+    def span(self, kind: list, device, fn):
+        with torch.cuda.device(device):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+        kind.append((device, a, b))
+        return out
+
+
+def _run(trace, kind: str, device, fn):
+    return fn() if trace is None else trace.span(getattr(trace, kind), device, fn)
+
+
+def _mark(trace, *names: str) -> None:
+    if trace is not None:
+        for name in names:
+            trace.mark(name)
+
+
+def old_call(case: Case, trace: Trace | None = None) -> torch.Tensor:
+    """The earlier per-shard form (module doc)."""
+    parts = [_run(trace, "launches", s.device, lambda s=s: case.single(s))
+             for s in case.shards]
+    _mark(trace, "issued")
+    host = []
+    for p in parts:
+        def copy(p=p):
+            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            h.copy_(p, non_blocking=True)
+            return h
+        host.append(_run(trace, "copies", p.device, copy))
+    _mark(trace, "copies")
+    for dev in dict.fromkeys(p.device for p in parts):
+        torch.cuda.current_stream(dev).synchronize()
+    _mark(trace, "waited")
+    out = torch.cat(host, dim=-1)
+    _mark(trace, "joined")
+    return out
+
+
+def joined_call(case: Case, landing: str, copy_lib=None,
+                trace: Trace | None = None) -> torch.Tensor:
+    """One launch a card (``pm.card_layout``) landing in the page-locked
+    joined buffer: ``mapped`` stores through its device address (what
+    ``parallel/mesh.py`` does), ``copy`` into a device buffer a launch and
+    one ``cudaMemcpy2DAsync`` each to its offset."""
+    shards = case.shards
+    words = pm.logical_size(shards, case.axis) // 32
+    out = torch.empty((case.out_rows, words), dtype=torch.int32, pin_memory=True)
+    done = []
+    for cs in pm.card_layout(shards, case.axis, case.capacity):
+        staged = []
+        for run in cs.launches:
+            first = cs.offsets[cs.shards.index(run[0])]
+            part = [shards[i] for i in run]
+            if landing == "mapped":
+                _run(trace, "launches", cs.device, lambda part=part, first=first: case.into(
+                    out, first, part))
+                continue
+            n = len(run) * (shards[0].shape[case.axis] // 32)
+            with torch.cuda.device(cs.device):
+                buf = torch.empty((case.out_rows, n), dtype=torch.int32, device=cs.device)
+            _run(trace, "launches", cs.device, lambda part=part, buf=buf: case.into(buf, 0, part))
+            staged.append((buf, first, n))
+        for buf, first, n in staged:
+            def copy(buf=buf, first=first, n=n):
+                err = copy_lib.copy_rows_to_host(
+                    out.data_ptr() + 4 * first, 4 * words, buf.data_ptr(), 4 * n, 4 * n,
+                    case.out_rows, torch.cuda.current_stream(cs.device).cuda_stream)
+                if err:
+                    raise RuntimeError(f"cudaMemcpy2DAsync failed: cudaError {err}")
+            _run(trace, "copies", cs.device, copy)
+        done.append(torch.cuda.current_stream(cs.device).record_event())
+    _mark(trace, "issued", "copies")
+    for event in done:
+        event.synchronize()
+    _mark(trace, "waited", "joined")
+    return out
+
+
+def build_copy_lib(directory: str) -> ctypes.CDLL:
+    """The strided copy of the ``copy`` form, built into ``directory``."""
+    source = os.path.join(directory, "copy_rows.cu")
+    with open(source, "w") as fh:
+        fh.write(COPY_SOURCE)
+    library = os.path.join(directory, "libcopy_rows.so")
+    build.build_library(source, library, force=True)
+    lib = ctypes.CDLL(library)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.copy_rows_to_host.argtypes = [p, i64, p, i64, i64, i64, p]
+    lib.copy_rows_to_host.restype = ctypes.c_int
+    return lib
+
+
+def form_call(case: Case, form: str, copy_lib=None) -> Callable[[], torch.Tensor]:
+    """The timed call of ``form``: ``mapped`` is the package's wrapper."""
+    if form == "old":
+        return lambda: old_call(case)
+    if form == "mapped":
+        return case.wrapper
+    return lambda: joined_call(case, "copy", copy_lib)
+
+
+def breakdown(case: Case, form: str, copy_lib=None) -> dict:
+    """One traced call of ``form`` -> its breakdown (module doc)."""
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    for d in devices:
+        torch.cuda.synchronize(d)
+    trace = Trace()
+    if form == "old":
+        old_call(case, trace)
+    else:
+        joined_call(case, form, copy_lib, trace)
+    t = trace.t
+    cards = {}
+    for d in devices:
+        mine = [(a, b) for dd, a, b in trace.launches if dd == d]
+        cards[str(d)] = {
+            "launches": len(mine),
+            "span_ms": mine[0][0].elapsed_time(mine[-1][1]),
+            "busy_ms": sum(a.elapsed_time(b) for a, b in mine),
+            "copy_ms": sum(a.elapsed_time(b) for dd, a, b in trace.copies if dd == d),
+        }
+    n = len(trace.launches)
+    return {
+        "issue_ms": (t["issued"] - t["start"]) * 1e3,
+        "issue_per_launch_ms": (t["issued"] - t["start"]) * 1e3 / n,
+        "copy_issue_ms": (t["copies"] - t["issued"]) * 1e3,
+        "wait_ms": (t["waited"] - t["copies"]) * 1e3,
+        "join_ms": (t["joined"] - t["waited"]) * 1e3,
+        "total_ms": (t["joined"] - t["start"]) * 1e3,
+        "cards": cards,
+    }
+
+
+# -- timing -----------------------------------------------------------------------
+
+
+def call_ms(fn, devices, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` between synchronisations of every
+    card in ``devices`` (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def median_breakdown(samples: list) -> dict:
+    """The median of each number over instrumented calls."""
+    def med(values):
+        first = values[0]
+        if isinstance(first, dict):
+            return {k: med([v[k] for v in values]) for k in first}
+        return statistics.median(values)
+
+    return med(samples)
+
+
+def random_words(shape, gen: torch.Generator, device) -> torch.Tensor:
+    words = torch.randint(0, 1 << 32, shape, generator=gen, device=device, dtype=torch.int64)
+    return (words - (1 << 31)).to(torch.int32)
+
+
+def mesh_state(devices: tuple, seed: int, rows: int, shard_cols: int,
+               shard_chunks: int) -> tuple:
+    """Random bank and stream shards on ``devices`` (one shard each), from
+    one generator a card seeded with ``seed``."""
+    gens = {d: torch.Generator(device=d).manual_seed(seed) for d in dict.fromkeys(devices)}
+    bank = tuple(random_words((rows, shard_cols), gens[d], d) for d in devices)
+    stream = tuple(random_words((shard_chunks, 128), gens[d], d) for d in devices)
+    return bank, stream
+
+
+def needles_of(n_real: int, rng: np.random.Generator) -> tuple:
+    """``n_real`` lowercase needles of 4 to 12 bytes -> (int32[n, 32], int32[n])."""
+    padded = np.zeros((n_real, 32), np.int32)
+    lens = np.zeros(n_real, np.int32)
+    for r in range(n_real):
+        n = int(rng.integers(4, 13))
+        padded[r, :n] = rng.integers(0x61, 0x7B, n)
+        lens[r] = n
+    return padded, lens
+
+
+def make_cases(mesh, bank: tuple, stream: tuple, rng: np.random.Generator,
+               rows: int) -> list:
+    """Each wrapper at its most launched main-path shape on random data."""
+    def probes(T):
+        return (rng.integers(0, rows, T * K).astype(np.int32),
+                rng.integers(0, 32, T * K).astype(np.int32))
+
+    return [
+        probe_case("K3-a pack, T = 4", mesh, bank, "pack", *probes(4), 4),
+        probe_case("K3-b reduce, T = 1", mesh, bank, "reduce_and", *probes(1), 1),
+        probe_case("K3-c clauses, T = 4, 2 clauses, 1 member", mesh, bank, "clauses",
+                   *probes(4), 4),
+        scan_case("K3-d scan, n_real = 1", mesh, stream, *needles_of(1, rng), 1),
+        scan_case("K3-d scan, n_real = 8", mesh, stream, *needles_of(8, rng), 8),
+    ]
+
+
+def launch_counts() -> dict:
+    return {**{f"probe {k}": v for k, v in pk.launch_counts().items()},
+            **{f"scan {k}": v for k, v in ks.launch_counts().items()}}
+
+
+def turns(case: Case, copy_lib, reps: int = 25, log=log) -> dict:
+    """The three forms of one case: bit-identical to one another (and to
+    to the earlier per-shard form), each timed as a caller sees it in turns (old, mapped,
+    copy, copy, mapped, old), each one's median breakdown, and the kernel
+    launches one wrapper call makes."""
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    want = old_call(case)
+    for form in FORMS[1:]:
+        if not torch.equal(form_call(case, form, copy_lib)(), want):
+            raise AssertionError(f"{case.label}: the {form} form differs from the per-shard form")
+    before = launch_counts()
+    case.wrapper()
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    times: dict = {form: [] for form in FORMS}
+    for form in FORMS + FORMS[::-1]:
+        times[form].append(call_ms(form_call(case, form, copy_lib), devices, reps))
+    parts = {}
+    for form in FORMS:
+        breakdown(case, form, copy_lib)
+        parts[form] = median_breakdown([breakdown(case, form, copy_lib) for _ in range(reps)])
+    layout = pm.card_layout(case.shards, case.axis, case.capacity)
+    result = {"call_ms": times, "breakdown": parts, "kernel_launches_per_call": launched,
+              "cards": len(layout), "layout_launches": sum(len(c.launches) for c in layout)}
+    log(f"{case.label} on {len(case.shards)} shards, {len(devices)} card(s): calls "
+        + ", ".join(f"{f} {t[0]:.6f}/{t[1]:.6f}" for f, t in times.items())
+        + f" ms; kernel launches a call {launched}")
+    for form, b in parts.items():
+        log(f"  {form}: issue {b['issue_ms']:.6f} ({b['issue_per_launch_ms']:.6f} a launch), "
+            f"buffers and copies issued {b['copy_issue_ms']:.6f}, wait {b['wait_ms']:.6f}, "
+            f"join {b['join_ms']:.6f}, total {b['total_ms']:.6f} ms; "
+            + "; ".join(f"{d}: {c['launches']} launches, span {c['span_ms']:.6f} busy "
+                        f"{c['busy_ms']:.6f} copy {c['copy_ms']:.6f}"
+                        for d, c in b["cards"].items()))
+    return result
+
+
+def host_costs(mesh, bank: tuple, stream: tuple, reps: int = 200) -> dict:
+    """Median host-clock us of each step of one sharded call on ``mesh``:
+    a reduce-AND probe (T = 1) and a one-needle scan, each step run
+    ``reps`` times after a synchronisation that is not timed (a launch is
+    its issue alone; the steps with a wait include the card's turnaround),
+    and the whole wrappers beside the single-device probe call."""
+    dev = bank[0].device
+    rows = np.zeros(K, np.int32)
+    needles, lens = needles_of(1, np.random.default_rng(0))
+    words = pm.logical_size(bank, 1) // 32
+    scan_words = pm.logical_size(stream, 0) // 32
+    pinned = torch.empty((1, words), dtype=torch.int32, pin_memory=True)
+    scan_pinned = torch.empty((1, scan_words), dtype=torch.int32, pin_memory=True)
+    on_card = torch.empty((1, words), dtype=torch.int32, device=dev)
+    own = [bank[i] for i in pm.card_layout(bank, 1, pk.MAX_SHARDS)[0].launches[0]]
+    own_scan = [stream[i] for i in pm.card_layout(stream, 0, ks.MAX_SEGMENTS)[0].launches[0]]
+
+    def us(fn) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize(dev)
+        return statistics.median(times)
+
+    def event():
+        torch.cuda.current_stream(dev).record_event().synchronize()
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def launch_on_card():
+        pk.probe_shards_into(on_card, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
+
+    def launch_pinned():
+        pk.probe_shards_into(pinned, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
+
+    def scan_pinned_launch():
+        ks.byte_scan_shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1,
+                                 max_words=9)
+
+    steps = {
+        "pinned buffer": lambda: torch.empty((1, words), dtype=torch.int32, pin_memory=True),
+        "device buffer": lambda: torch.empty((1, words), dtype=torch.int32, device=dev),
+        "record and wait on an event": event,
+        "device guard": guard,
+        "card_layout": lambda: pm.card_layout(bank, 1, pk.MAX_SHARDS),
+        "probe arrays check": lambda: pk._check(bank[0], rows, rows, 1, K),
+        "launch into a device buffer": launch_on_card,
+        "launch into the pinned buffer": launch_pinned,
+        "sharded_query_step": lambda: pm.sharded_query_step(mesh, bank, rows, rows, 1, 1, K),
+        "single-device call and copy": lambda: pk.probe_reduce_and_pack(
+            bank[0], rows, rows, 1, K, 1).cpu(),
+        # Each with its wait: where a synchronised call's time goes.
+        "launch into a device buffer, stream wait": lambda: (
+            launch_on_card(), torch.cuda.current_stream(dev).synchronize()),
+        "launch into a device buffer, copy to the host": lambda: (
+            launch_on_card(), on_card.cpu()),
+        "launch into the pinned buffer, stream wait": lambda: (
+            launch_pinned(), torch.cuda.current_stream(dev).synchronize()),
+        "launch into the pinned buffer, event wait": lambda: (launch_pinned(), event()),
+        "an empty kernel, stream wait": lambda: (
+            torch.cuda._sleep(1), torch.cuda.current_stream(dev).synchronize()),
+        "scan: pinned buffer": lambda: torch.empty((1, scan_words), dtype=torch.int32,
+                                                   pin_memory=True),
+        "scan: needles check": lambda: ks._check(stream[0], needles, lens, 1, 9),
+        "scan: launch into the pinned buffer": scan_pinned_launch,
+        "scan: launch into the pinned buffer, event wait": lambda: (
+            scan_pinned_launch(), event()),
+        "scan: sharded_scan_all_rows": lambda: pm.sharded_scan_all_rows(
+            mesh, stream, needles, lens, n_real=1, max_words=9),
+    }
+    return {name: us(fn) for name, fn in steps.items()}
+
+
+def measure(device="cuda", shards: int = 4, reps: int = 25, seed: int = 0, log=log) -> dict:
+    """Every case on ``shards`` shards of one card and, with that many cards
+    visible, on a mesh of distinct cards."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("the mesh join runs on the card only")
+    device = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                          else device.index)
+    log(f"device {torch.cuda.get_device_name(device)}; nvidia-smi: {card()}")
+    meshes = {"one card": pm.Mesh((device,) * shards)}
+    if torch.cuda.device_count() >= shards:
+        meshes["distinct cards"] = pm.Mesh(tuple(torch.device("cuda", i) for i in range(shards)))
+    result = {"card": card(), "shards": shards}
+    with tempfile.TemporaryDirectory(prefix="bloomsearch-mesh-join-") as tmp:
+        copy_lib = build_copy_lib(tmp)
+        for name, mesh in meshes.items():
+            bank, stream = mesh_state(mesh.devices, seed, REFSCALE_ROWS, SHARD_COLUMNS,
+                                      SHARD_CHUNKS)
+            log(f"{name}: {shards} bank shards of {tuple(bank[0].shape)}, stream shards of "
+                f"{tuple(stream[0].shape)} on {[str(d) for d in mesh.devices]}")
+            rng = np.random.default_rng(seed)
+            result[name] = {case.label: turns(case, copy_lib, reps, log)
+                            for case in make_cases(mesh, bank, stream, rng, REFSCALE_ROWS)}
+            result[name]["host_us"] = host_costs(mesh, bank, stream)
+            log(f"{name}: host us a step " + ", ".join(
+                f"{k} {v:.2f}" for k, v in result[name]["host_us"].items()))
+            del bank, stream
+            for d in mesh.distinct_devices():
+                with torch.cuda.device(d):
+                    torch.cuda.empty_cache()
+    return result
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(prog="bloomsearch_tpu_torch.tools.exp_mesh_join")
+    parser.add_argument("--device", default="cuda", help="a CUDA device (no CPU form)")
+    parser.add_argument("--shards", type=int, default=4)
+    parser.add_argument("--reps", type=int, default=25)
+    parser.add_argument("--out", help="also write the JSON result to this path")
+    args = parser.parse_args(argv)
+    result = measure(args.device, args.shards, args.reps)
+    text = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

@@ -107,10 +107,11 @@ def launch(lib, bank: torch.Tensor, rows: np.ndarray, shifts: np.ndarray, T: int
     members = (ctypes.c_uint32 * len(MEMBERS))(*MEMBERS)
     n_clauses, n_members = (len(CLAUSES), len(MEMBERS)) if mode == pk.MODE_CLAUSES else (0, 0)
     out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
+    table = (ctypes.c_void_p * 1)(bank.data_ptr())
     err = lib.bs_probe_launch(
-        bank.data_ptr(), R, C, rows.ctypes.data, shifts.ctypes.data, T, K, mode,
-        (1 << T) - 1, clauses, n_clauses, members, n_members, out.data_ptr(),
-        torch.cuda.current_stream(bank.device).cuda_stream)
+        table, 1, R, C, rows.ctypes.data, shifts.ctypes.data, T, K, mode,
+        (1 << T) - 1, clauses, n_clauses, members, n_members, out.data_ptr(), C // 32, 0, 0,
+        bank.device.index, torch.cuda.current_stream(bank.device).cuda_stream)
     if err:
         raise RuntimeError(f"probe variant launch failed: cudaError {err}")
     return out

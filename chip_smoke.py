@@ -37,8 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. main-path shapes: the probe kernel against its plain version at every
    shape (C, T, members, clauses) the engine phase launched and phase 3 did
    not cover; each epilogue's most launched shape is timed and reported;
-   with ``--old-probe`` an earlier probe kernel (one that reads its probe
-   arrays from the card) against this one in turns at every phase-3 shape,
+   with ``--old-probe`` an earlier probe kernel (one bank a launch, the
+   probe arrays in its parameters) against this one in turns at every
+   phase-3 shape,
    each epilogue's most launched shape and the bench shape
    (``turns_against_old_probe``);
 7. serving engine: the same dataset in serving mode (the row stream pinned
@@ -57,15 +58,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    cards when four are visible, else cuda:0 four times), the needle
    queries' probe arrays and scan needles driven through the four sharded
    wrappers, each result bit-identical to the unsharded kernel on the same
-   logical content and to the plain version, with CUDA-event times per
-   sharded call, per shard launch and per unsharded launch; (b) the main
-   path: the serving engine restarted from phase 7's sidecar over a mesh
-   (every card with its default ``mesh_devices=None`` when two or more are
-   visible, else the four shards on cuda:0), every query shape and 16
-   threads against the host-probe engine's rows, the K3 counters set to 0
-   just before its queries and read just after; with two or more cards
-   also ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()``
-   against the plain version;
+   logical content and to the plain version; then each wrapper at its
+   main-path shape in three forms timed in turns as a caller sees them
+   (``tools/exp_mesh_join.py``: the package's one launch a card into the
+   page-locked joined bitmap, the earlier launch, copy and host join a
+   shard, and a device buffer with one strided copy a launch), each form's
+   breakdown (issue, each card's launch spans, copies, wait, join) and the
+   kernel launches one sharded call makes, beside the single-device
+   call and device times of the unsharded launch and of one launch over a
+   card's shards; (b) the main path: the serving engine restarted from
+   phase 7's sidecar over a mesh (every card with its default
+   ``mesh_devices=None`` when two or more are visible, else the four
+   shards on cuda:0), every query shape and 16 threads against the
+   host-probe engine's rows, the K3 and kernel counters set to 0 just
+   before its queries and read just after, the kernel launches exactly
+   one a card for each sharded call; with two or more cards also
+   ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()`` against
+   the plain version;
 9. tools: (a) the probe's access-pattern floor kernel (K1f,
    ``probe_floor``) against its plain version, bit-identical, at the bench
    shape (13,480 rows, C = 32,768, T = 4) and at the refscale bank's C =
@@ -454,10 +463,10 @@ def phase_main_shapes(dev, launched: dict, cases: dict,
 
 def old_probe_launcher(source: str):
     """An earlier probe kernel, built from ``source``: a ``csrc/probe.cu``
-    whose ``bs_probe_launch`` takes the probe arrays on the card (the
-    interface before they moved into the launch's parameters). ->
-    launch(bank, rows, shifts, T, k, name, extra) on the current stream,
-    ``rows`` and ``shifts`` int32 tensors on the bank's device."""
+    whose ``bs_probe_launch`` takes one bank and the host probe arrays in
+    the launch's parameters, its output a new tensor (the interface before
+    the shard table). -> launch(bank, rows, shifts, T, k, name, extra) on
+    the current stream, ``rows`` and ``shifts`` host int32 arrays."""
     import ctypes
 
     from bloomsearch_tpu_torch.kernels import build
@@ -467,7 +476,10 @@ def old_probe_launcher(source: str):
     report = build.build_library(source, path, force=True)
     log(f"old probe kernel built from {source}: "
         f"{[ln.strip() for ln in report.splitlines() if 'registers' in ln]}")
-    lib = pk.bind(path)  # the same C signatures: only where the probe arrays lie differs
+    lib = ctypes.CDLL(path)
+    p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+    lib.bs_probe_launch.argtypes = [p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p]
+    lib.bs_probe_launch.restype = ctypes.c_int
     modes = {"probe_and_pack": pk.MODE_PACK, "probe_reduce_and_pack": pk.MODE_REDUCE,
              "probe_clauses_pack": pk.MODE_CLAUSES}
 
@@ -477,10 +489,12 @@ def old_probe_launcher(source: str):
         out_rows = {"probe_and_pack": T, "probe_reduce_and_pack": 1}.get(name, len(member_bits))
         cb = (ctypes.c_uint32 * max(len(clause_bits), 1))(*clause_bits)
         mb = (ctypes.c_uint32 * max(len(member_bits), 1))(*member_bits)
+        rows = np.ascontiguousarray(rows, dtype=np.int32)
+        shifts = np.ascontiguousarray(shifts, dtype=np.int32)
         R, C = bank.shape
         out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
         err = lib.bs_probe_launch(
-            bank.data_ptr(), R, C, rows.data_ptr(), shifts.data_ptr(), T, k, modes[name],
+            bank.data_ptr(), R, C, rows.ctypes.data, shifts.ctypes.data, T, k, modes[name],
             and_bits, cb, len(clause_bits), mb, len(member_bits), out.data_ptr(),
             torch.cuda.current_stream(bank.device).cuda_stream)
         if err:
@@ -498,11 +512,10 @@ def turns_against_old_probe(dev, source: str, main_cases: dict, reps: int = 25,
     new, old; device time behind a spin kernel, fresh random rows each
     launch, its own for each run): every phase-3 shape, each epilogue's
     most launched main-path shape (``main_cases``, phase 6) and the bench
-    shape, beside an empty launch by the same clock. The earlier kernel
-    reads its probe arrays from the card (uploaded before the timing); the
-    caller's time of each (``call_ms``: the earlier kernel with the upload
-    of its probe arrays, this one with them in its parameters) is timed
-    once each. Both kernels must equal the plain version at every case."""
+    shape, beside an empty launch by the same clock. Both take the host
+    probe arrays in their parameters; the caller's time of each
+    (``call_ms``, the launch with its output) is timed once each. Both
+    kernels must equal the plain version at every case."""
     from bloomsearch_tpu_torch.kernels import probe as pk
 
     old = old_probe_launcher(source)
@@ -531,7 +544,7 @@ def turns_against_old_probe(dev, source: str, main_cases: dict, reps: int = 25,
         on_card = [tuple(a.to(dev) for a in pair) for pair in sets]
         extra = epilogue_args(name, T, clauses, members)
         kernel = getattr(pk, name)
-        old_fn = lambda i, o=0: old(bank, *on_card[o + i], T, K, name, extra)  # noqa: E731
+        old_fn = lambda i, o=0: old(bank, *sets[o + i], T, K, name, extra)  # noqa: E731
         new_fn = lambda i, o=0: kernel(bank, *sets[o + i], T, K, *extra)  # noqa: E731
         for i in range(3):
             want = plain_epilogue(pk, name, bank, *on_card[i], T, extra)
@@ -541,17 +554,13 @@ def turns_against_old_probe(dev, source: str, main_cases: dict, reps: int = 25,
         ms = [event_ms(lambda i, fn=fn, o=run * reps: fn(i, o), reps, hide_host=True)
               for run, fn in enumerate((old_fn, new_fn, new_fn, old_fn))]
 
-        def old_call(i, o=4 * reps):
-            probes = torch.from_numpy(np.stack([a.numpy() for a in sets[o + i]])).to(dev)
-            return old(bank, probes[0], probes[1], T, K, name, extra)
-
         bound_ms, bound_by = probe_bound(T, C, {"probe_and_pack": T,
                                                 "probe_reduce_and_pack": 1}.get(name, members))
         label = f"{name} R={R} C={C} T={T}" + (
             f" clauses={clauses} members={members}" if name == "probe_clauses_pack" else "")
         result[label] = {
             "old_ms": [ms[0], ms[3]], "new_ms": [ms[1], ms[2]],
-            "old_call_ms": event_ms(old_call, reps, hide_host=False),
+            "old_call_ms": event_ms(lambda i: old_fn(i, 4 * reps), reps, hide_host=False),
             "new_call_ms": event_ms(lambda i: new_fn(i, 5 * reps), reps, hide_host=False),
             "bound_ms": bound_ms, "bound_by": bound_by}
         r = result[label]
@@ -1208,9 +1217,10 @@ def dense_sweep(ks, matrix: torch.Tensor, real: list[bytes]) -> dict:
 
 def old_scan_launcher(source: str):
     """An earlier scan kernel, built from ``source``: a ``csrc/scan.cu``
-    whose ``bs_scan_launch`` takes uniform segments (starts, their count
-    and one chunk count). -> launch(rows32, padded, lens, n_real, starts,
-    seg_chunks) on the current stream."""
+    whose ``bs_scan_launch`` takes ranges in its one stream (first rows and
+    chunk counts) and writes a new output (the interface before the
+    per-range bases). -> launch(rows32, padded, lens, n_real, starts=(),
+    counts=()) on the current stream: dense without ranges."""
     import ctypes
 
     from bloomsearch_tpu_torch.kernels import build
@@ -1221,19 +1231,20 @@ def old_scan_launcher(source: str):
         f"{[ln.strip() for ln in report.splitlines() if 'registers' in ln]}")
     lib = ctypes.CDLL(path)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, i32, i64, p, p]
+    lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, p, i32, p, p]
     lib.bs_scan_launch.restype = ctypes.c_int
 
-    def launch(rows32, padded, lens, n_real, starts=(), seg_chunks=0):
+    def launch(rows32, padded, lens, n_real, starts=(), counts=()):
         nb = np.ascontiguousarray(padded[:n_real], dtype=np.uint8)
         ln = np.ascontiguousarray(lens[:n_real], dtype=np.int32)
         st = np.ascontiguousarray(starts, dtype=np.int64)
-        chunks = st.size * seg_chunks if st.size else rows32.shape[0]
+        ct = np.ascontiguousarray(counts, dtype=np.int64)
+        chunks = int(ct.sum()) if st.size else rows32.shape[0]
         out = torch.empty((n_real, chunks // 32), dtype=torch.int32, device=rows32.device)
         err = lib.bs_scan_launch(
             rows32.data_ptr(), rows32.shape[0], chunks, nb.ctypes.data, ln.ctypes.data,
-            n_real, st.ctypes.data if st.size else None, st.size, seg_chunks,
-            out.data_ptr(), torch.cuda.current_stream(rows32.device).cuda_stream)
+            n_real, st.ctypes.data if st.size else None, ct.ctypes.data if ct.size else None,
+            st.size, out.data_ptr(), torch.cuda.current_stream(rows32.device).cuda_stream)
         if err:
             raise RuntimeError(f"old scan kernel launch failed: cudaError {err}")
         return out
@@ -1241,26 +1252,16 @@ def old_scan_launcher(source: str):
     return launch
 
 
-def range_bits(out: torch.Tensor, firsts: list[int], counts: list[int]) -> np.ndarray:
-    """The bits of the requested chunks of each range out of a segment
-    launch's packed words -> bool[n_real, sum(counts)]."""
-    bits = np.unpackbits(out.cpu().numpy().view(np.uint8), axis=1, bitorder="little")
-    return np.concatenate([bits[:, f : f + n] for f, n in zip(firsts, counts)], axis=1)
-
-
 def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[bytes],
                            seg_args: dict, worst_rows: int = 65_536, reps: int = 10) -> dict:
     """This scan kernel against an earlier one built from ``source``
     (``old_scan_launcher``) on the same card, timed in turns (old, new,
     new, old): dense over the resident stream with 1 and with 8 of the
-    engine's needles; the main path's most launched segment launch, the
-    earlier kernel at the launch shape it takes for the same ranges (pow2
-    segments of at least 512 chunks, a pow2 count padded with starts at
-    chunk 0, 8 needle rows of which the padding has length 0), both after
-    an L2 flush; and the repeated-byte stream with a 32-byte needle whose
-    last, first or 17th byte is the odd one (a fixed anchor's worst
-    cases).
-    The two kernels' bits must agree on every case."""
+    engine's needles; the main path's most launched segment launch, both
+    kernels over the same ranges, after an L2 flush; and the repeated-byte
+    stream with a 32-byte needle whose last, first or 17th byte is the odd
+    one (a fixed anchor's worst cases). The two kernels' words must be
+    equal on every case."""
     old = old_scan_launcher(source)
     rows = matrix.shape[0]
     flush = lambda: flush_l2(matrix.device)  # noqa: E731
@@ -1271,25 +1272,17 @@ def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[byt
             lambda i, p=padded, ln=lens, n=n_real: old(matrix, p, ln, n),
             lambda i, p=padded, ln=lens, n=n_real: ks.byte_scan_stream(
                 matrix, p, ln, n_real=n, max_words=9),
-            None, scan_bound(rows, [int(v) for v in lens], [0] * n_real), None)
+            None, scan_bound(rows, [int(v) for v in lens], [0] * n_real))
     starts, counts = seg_args["starts"], seg_args["seg_chunks"]
     n_real = seg_args["n_real"]
-    seg = max(512, 1 << (max(counts) - 1).bit_length())
-    n_segs = 1 << (len(starts) - 1).bit_length()
-    old_starts = [min(s, rows - seg) for s in starts] + [0] * (n_segs - len(starts))
-    old_pad, old_lens = pack_rows([], 8)
-    old_pad[:n_real] = np.asarray(seg_args["needles"])[:n_real]
-    old_lens[:n_real] = np.asarray(seg_args["lens"])[:n_real]
     read, rounded = ks.segment_layout(starts, counts, rows)
-    new_first = [int(o) + s - r for o, s, r in zip(np.cumsum([0] + rounded[:-1]), starts, read)]
-    old_first = [p * seg + s - o for p, (s, o) in enumerate(zip(starts, old_starts))]
     cases["main-path segments"] = (
-        lambda i: old(matrix, old_pad, old_lens, 8, old_starts, seg),
+        lambda i: old(matrix, seg_args["needles"], seg_args["lens"], n_real, read, rounded),
         lambda i: ks.byte_scan_segments(matrix, starts, seg_args["needles"], seg_args["lens"],
                                         n_real=n_real, max_words=seg_args["max_words"],
                                         seg_chunks=counts),
-        flush, scan_bound(sum(counts), [int(v) for v in old_lens[:n_real]], [0] * n_real),
-        (old_first, new_first, counts, n_real))
+        flush, scan_bound(sum(counts), [int(v) for v in seg_args["lens"][:n_real]],
+                          [0] * n_real))
     worst, near = repeated_byte_stream(worst_rows)
     worst_t = torch.from_numpy(worst.view(np.int32).copy()).to(matrix.device)
     for which, nd in (("last", near[0]), ("first", near[4]), ("17th", near[6])):
@@ -1298,17 +1291,12 @@ def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[byt
             lambda i, p=pad_w, ln=lens_w: old(worst_t, p, ln, 1),
             lambda i, p=pad_w, ln=lens_w: ks.byte_scan_stream(worst_t, p, ln, n_real=1,
                                                               max_words=9),
-            None, scan_bound(worst_rows, [32], [0]), None)
+            None, scan_bound(worst_rows, [32], [0]))
     result = {}
-    for label, (old_fn, new_fn, before, (bound_ms, bound_by), seg_map) in cases.items():
+    for label, (old_fn, new_fn, before, (bound_ms, bound_by)) in cases.items():
         a, b = old_fn(0), new_fn(0)
         torch.cuda.synchronize()
-        if seg_map is None:
-            same = torch.equal(a, b)
-        else:
-            of, nf, cnt, n = seg_map
-            same = np.array_equal(range_bits(a, of, cnt)[:n], range_bits(b, nf, cnt))
-        if not same:
+        if not torch.equal(a, b):
             raise AssertionError(f"turns {label}: the two kernels disagree")
         ms = [event_ms(fn, reps, hide_host=True, before=before)
               for fn in (old_fn, new_fn, new_fn, old_fn)]
@@ -1511,6 +1499,7 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     from bloomsearch_tpu_torch.kernels import probe as pk
     from bloomsearch_tpu_torch.kernels import scan as ks
     from bloomsearch_tpu_torch.parallel import mesh as pm
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
 
     n_cards = torch.cuda.device_count()
     if n_cards >= MESH_SHARDS:
@@ -1585,39 +1574,39 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     log(f"mesh: {len(scans)} sharded scans bit-identical to the unsharded kernel "
         f"(G = {G}) and to the plain version; padding chunks as expected")
 
-    # Times. The sharded call returns the joined bitmap on the host, so it
-    # is timed as a caller sees it (events around the call, host work and
-    # the copies included), beside the single-device engine's call (the
-    # launch with the host probe arrays, its copy to the host) and the
-    # same wrapper given the unsharded tensor (one shard); the shard
-    # launches alone, one shard launch and one unsharded launch are device
-    # times (behind a spin kernel). Bounds are per card: the most any one
-    # card of the mesh must read and compute.
+    # Times, on the main-path shapes of the resident state: each wrapper in
+    # the package's form (one launch a card into the page-locked joined
+    # bitmap), the earlier per-shard form (a launch, a copy and a host join
+    # a shard) and
+    # the copy landing (a device buffer and one strided copy a launch),
+    # in turns as a caller sees them, with each form's breakdown and the
+    # kernel launches one sharded call makes (tools/exp_mesh_join.py);
+    # beside them the single-device engine's call (the launch with the
+    # host probe arrays, its copy to the host) and the device time of the
+    # unsharded launch and of one launch over the first card's shards
+    # (behind a spin kernel). Bounds are per card: the most any one card
+    # of the mesh must read and compute.
+    copy_lib = mj.build_copy_lib(tempfile.mkdtemp(prefix="bloomsearch-mesh-join-"))
     entries = {}
-    rep_case = {"sharded_probe_packed": "or_tree", "sharded_query_step": "token",
-                "sharded_probe_clauses": "or_tree"}
-    per_card = card_shards(sharded[0])
-    for name, query in rep_case.items():
+    rep_case = {"sharded_probe_packed": ("or_tree", "pack"),
+                "sharded_query_step": ("token", "reduce_and"),
+                "sharded_probe_clauses": ("or_tree", "clauses")}
+    layout = pm.card_layout(sharded[0], 1, pk.MAX_SHARDS)
+    for name, (query, epilogue) in rep_case.items():
         case = next(c for c in cases if c["query"] == query and c["bank"] == 0)
-        call, unsharded, plain = mesh_probe_calls(pm, mesh, case)[name]
+        _, unsharded, plain = mesh_probe_calls(pm, mesh, case)[name]
         shards, own = sharded[0], banks[0][0]
         r, s_ = case["rows"], case["shifts"]
         r_dev, s_dev = torch.from_numpy(r).to(dev), torch.from_numpy(s_).to(dev)
-
-        def single(i, unsharded=unsharded, r=r, s_=s_, own=own):
-            return unsharded(own, r, s_).cpu()
-
-        out_rows = {"sharded_probe_packed": case["T"], "sharded_query_step": 1,
-                    "sharded_probe_clauses": len(case["member_bits"])}[name]
-        card_cols = max(len(ix) for ix in per_card.values()) * shards[0].shape[1]
+        form = mj.probe_case(name, mesh, shards, epilogue, r, s_, case["T"], case["K"],
+                             case["clause_bits"], case["member_bits"])
+        out_rows = {"pack": case["T"], "reduce_and": 1}.get(epilogue, len(case["member_bits"]))
+        card_cols = max(len(c.shards) for c in layout) * shards[0].shape[1]
         entries[name] = time_mesh_case(
             f"{name} ({query}, T={case['T']}, {MESH_SHARDS} shards of {tuple(shards[0].shape)}, "
-            f"unsharded {tuple(own.shape)})",
-            {"ms": lambda i, call=call, shards=shards: call(shards),
-             "unsharded_call_ms": single,
-             "one_shard_call_ms": lambda i, call=call, own=own: call(own)},
-            lambda sh, unsharded=unsharded, r=r, s_=s_: unsharded(sh, r, s_),
-            shards, joined[0],
+            f"unsharded {tuple(own.shape)})", form, copy_lib,
+            lambda i, unsharded=unsharded, r=r, s_=s_, own=own: unsharded(own, r, s_).cpu(),
+            lambda sh, unsharded=unsharded, r=r, s_=s_: unsharded(sh, r, s_), joined[0],
             lambda i, plain=plain, case=case, r=r_dev, s_=s_dev: plain(
                 pk.probe_plain(joined[0], r, s_, case["T"], case["K"])),
             probe_bound(case["T"], card_cols, out_rows), reps)
@@ -1626,21 +1615,17 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     real_lens = [int(v) for v in args["lens"][: args["n_real"]]]
     w = stream[0].shape[0] // 32
     scan_bounds = [
-        scan_bound(len(ix) * stream[0].shape[0], real_lens, popcounts(torch.cat(
-            [scans[0][:, i * w : (i + 1) * w] for i in ix], dim=1).to(dev)))
-        for ix in card_shards(stream).values()
+        scan_bound(len(c.shards) * stream[0].shape[0], real_lens, popcounts(torch.cat(
+            [scans[0][:, i * w : (i + 1) * w] for i in c.shards], dim=1).to(dev)))
+        for c in pm.card_layout(stream, 0, ks.MAX_SEGMENTS)
     ]
     entries["sharded_scan_all_rows"] = time_mesh_case(
         f"sharded_scan_all_rows (lens {real_lens}, {MESH_SHARDS} shards of "
         f"{tuple(stream[0].shape)}, unsharded {tuple(matrix.shape)})",
-        {"ms": lambda i: pm.sharded_scan_all_rows(mesh, stream, args["needles"], args["lens"],
-                                                  **kw),
-         "unsharded_call_ms": lambda i: ks.byte_scan_stream(matrix, args["needles"],
-                                                            args["lens"], **kw).cpu(),
-         "one_shard_call_ms": lambda i: pm.sharded_scan_all_rows(None, matrix, args["needles"],
-                                                                 args["lens"], **kw)},
-        lambda sh: ks.byte_scan_stream(sh, args["needles"], args["lens"], **kw),
-        stream, matrix,
+        mj.scan_case("sharded_scan_all_rows", mesh, stream, args["needles"], args["lens"], **kw),
+        copy_lib,
+        lambda i: ks.byte_scan_stream(matrix, args["needles"], args["lens"], **kw).cpu(),
+        lambda sh: ks.byte_scan_stream(sh, args["needles"], args["lens"], **kw), matrix,
         lambda i: plain_scan(ks, matrix, args["needles"], args["lens"], args["n_real"]),
         max(scan_bounds), 5, plain_reps=1)
     del sharded, joined, stream
@@ -1670,51 +1655,41 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     return entries, engine
 
 
-def card_shards(shards: tuple) -> dict:
-    """{device: the indices of the shards on it}."""
-    out: dict = {}
-    for i, sh in enumerate(shards):
-        out.setdefault(sh.device, []).append(i)
-    return out
-
-
-def time_mesh_case(label: str, calls: dict, kernel, shards, full, plain, bound,
+def time_mesh_case(label: str, form, copy_lib, unsharded_call, kernel, full, plain, bound,
                    reps: int, plain_reps: int = 3) -> dict:
-    """Times of one K3 wrapper at one shape (phase 8), from CUDA events on
-    the first card: ``calls`` maps each caller's-time key to its call. The
-    shard launches alone are timed so only when every shard is on that card;
-    across cards, by the host clock between synchronizations of every
-    card."""
-    devices = list(card_shards(shards))
-    launches = lambda i: [kernel(sh) for sh in shards]
-    case = {key: event_ms(fn, reps, hide_host=False) for key, fn in calls.items()}
-    case.update({
-        "launches_ms": (event_ms(launches, reps, hide_host=True) if len(devices) == 1
-                        else wall_ms(launches, reps, devices)),
-        "shard_ms": event_ms(lambda i: kernel(shards[0]), reps, hide_host=True),
+    """Times of one K3 wrapper at one shape (phase 8): the three forms in
+    turns with their breakdowns (``tools/exp_mesh_join.turns``; ``ms`` is
+    the package's form, the mean of its two turns), the single-device
+    engine's call (``unsharded_call``, CUDA events around it), and device
+    times behind a spin kernel: ``kernel`` on the unsharded tensor
+    ``full``, one launch over the first card's shards (``form.into``) and
+    the plain version."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    turns = mj.turns(form, copy_lib, reps, log=log)
+    first = pm.card_layout(form.shards, form.axis, form.capacity)[0]
+    run = [form.shards[i] for i in first.launches[0]]
+    words = pm.logical_size(form.shards, form.axis) // 32
+    with torch.cuda.device(run[0].device):
+        out = torch.empty((form.out_rows, words), dtype=torch.int32, device=run[0].device)
+        card_launch_ms = event_ms(lambda i: form.into(out, 0, run), reps, hide_host=True)
+    case = {
+        "ms": statistics.mean(turns["call_ms"]["mapped"]),
+        "old_ms": turns["call_ms"]["old"], "copy_landing_ms": turns["call_ms"]["copy"],
+        "mapped_ms": turns["call_ms"]["mapped"],
+        "unsharded_call_ms": event_ms(unsharded_call, reps, hide_host=False),
+        "card_launch_ms": card_launch_ms, "card_launch_shards": len(run),
         "unsharded_ms": event_ms(lambda i: kernel(full), reps, hide_host=True),
         "plain_ms": event_ms(plain, plain_reps, hide_host=True),
         "bound_ms": bound[0], "bound_by": bound[1],
-    })
+        "cards": turns["cards"], "kernel_launches_per_call": turns["kernel_launches_per_call"],
+        "breakdown": turns["breakdown"],
+    }
     log(f"mesh {label}: " + " ".join(
-        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}" for k, v in case.items()))
+        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}" for k, v in case.items()
+        if k != "breakdown"))
     return case
-
-
-def wall_ms(fn, reps: int, devices) -> float:
-    """Median host-clock time of ``fn(i)`` between synchronizations of
-    every device in ``devices``."""
-    fn(0)
-    times = []
-    for i in range(reps):
-        for d in devices:
-            torch.cuda.synchronize(d)
-        t0 = time.perf_counter()
-        fn(i)
-        for d in devices:
-            torch.cuda.synchronize(d)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int = 7) -> dict:
@@ -1732,6 +1707,7 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
 
     import bloomsearch_tpu_torch.bloom.bank as bank_mod
     import bloomsearch_tpu_torch.rowcache as rc_mod
+    from bloomsearch_tpu_torch.kernels import probe as pk
 
     store = resident["store"]
     config = engine_config(**{**resident["serving"],
@@ -1771,6 +1747,7 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
 
         shapes, results = resident["shapes"], resident["results"]
         pm.reset_launch_counts()
+        pk.reset_launch_counts()
         ks.reset_launch_counts()
         for name, query in shapes.items():
             times = []
@@ -1784,13 +1761,29 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
                 f"{out[f'warm_p50_ms_{name}']:.3f} ms over {reps}")
         run_concurrent(engine, shapes, results, out)
         out["launches"] = pm.launch_counts()
+        probes = pk.launch_counts()
         scans = ks.launch_counts()
     finally:
         engine.stop(timeout=600)
     if scans["segments"]:
         raise AssertionError(f"a segment scan on a mesh: {scans}")
-    log(f"mesh engine: sharded launches on the main path {out['launches']}; shard scan "
-        f"launches {scans}")
+    # One launch a card (per launch table) for each sharded call.
+    calls = out["launches"]
+    per_probe = sum(-(-used.devices.count(d) // pk.MAX_SHARDS) for d in used.distinct_devices())
+    per_scan = sum(-(-used.devices.count(d) // ks.MAX_SEGMENTS) for d in used.distinct_devices())
+    want = {"probe": per_probe * (calls["sharded_probe_packed"] + calls["sharded_query_step"]
+                                  + calls["sharded_probe_clauses"]),
+            "scan": per_scan * calls["sharded_scan_all_rows"]}
+    got = {"probe": probes["pack"] + probes["reduce_and"] + probes["clauses"],
+           "scan": scans["stream"]}
+    if got != want:
+        raise AssertionError(f"kernel launches {got} on the mesh, want {want} "
+                             f"({per_probe} probe and {per_scan} scan launches a call)")
+    out["kernel_launches"] = {"probe": probes, "scan": scans,
+                              "per_sharded_call": {"probe": per_probe, "scan": per_scan}}
+    log(f"mesh engine: sharded calls on the main path {calls}; kernel launches: probe "
+        f"{probes}, scan {scans}: {per_probe} probe and {per_scan} scan launch(es) a call "
+        f"over {len(used.distinct_devices())} card(s)")
     return out
 
 
@@ -1977,11 +1970,11 @@ def main(argv=None) -> int:
                         help="refscale dataset size (the reference's 1.6 GB)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--old-probe", metavar="SOURCE",
-                        help="also time an earlier probe kernel source (a csrc/probe.cu that "
-                             "takes its probe arrays on the card) against this one, in turns")
+                        help="also time an earlier probe kernel source (a csrc/probe.cu with "
+                             "one bank a launch) against this one, in turns")
     parser.add_argument("--old-scan", metavar="SOURCE",
-                        help="also time an earlier scan kernel source (a csrc/scan.cu with "
-                             "the uniform-segment interface) against this one, in turns")
+                        help="also time an earlier scan kernel source (a csrc/scan.cu whose "
+                             "ranges lie in one stream) against this one, in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log("no CUDA device visible: this script measures the card and has no CPU mode")
@@ -2044,8 +2037,9 @@ def main(argv=None) -> int:
             "launches": case["launches"], "max_abs_err": case["max_abs_err"],
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None, "shards": MESH_SHARDS,
-            **{k: case[k] for k in ("launches_ms", "shard_ms", "unsharded_ms",
-                                    "unsharded_call_ms", "one_shard_call_ms")},
+            **{k: case[k] for k in ("old_ms", "mapped_ms", "copy_landing_ms", "unsharded_ms",
+                                    "unsharded_call_ms", "card_launch_ms", "cards",
+                                    "kernel_launches_per_call")},
         })
     kernels.append(tools["entry"])
     for k in kernels:

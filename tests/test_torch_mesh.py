@@ -8,6 +8,8 @@ stream chunks and needles. Tolerance: none — packed words, survivor totals,
 logical contents, capacities and placements must be equal.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -174,6 +176,146 @@ def test_probe_wrappers_take_host_tensors_at_an_odd_term_count(epilogue):
         port(rt.to("meta"), st)
 
 
+def stand_in(device: str, shape: tuple):
+    """What ``card_layout`` reads of a shard: its device and shape (CUDA
+    devices need no card here)."""
+    return types.SimpleNamespace(device=torch.device(device), shape=shape)
+
+
+# (shard devices, axis, shard width, capacity) -> per device: (positions,
+# first words, launches). Repeated and distinct devices, more shards than
+# a launch's table holds (probe 8, scan 4), and devices that interleave.
+LAYOUTS = [
+    (["cuda:0"] * 4, 1, 128, 8, {"cuda:0": ((0, 1, 2, 3), (0, 4, 8, 12), ((0, 1, 2, 3),))}),
+    ([f"cuda:{i}" for i in range(4)], 1, 128, 8,
+     {f"cuda:{i}": ((i,), (4 * i,), ((i,),)) for i in range(4)}),
+    (["cuda:0"] * 12, 1, 256, 8,
+     {"cuda:0": (tuple(range(12)), tuple(range(0, 96, 8)),
+                 (tuple(range(8)), tuple(range(8, 12))))}),
+    (["cuda:0"] * 10, 0, 512, 4,
+     {"cuda:0": (tuple(range(10)), tuple(range(0, 160, 16)),
+                 ((0, 1, 2, 3), (4, 5, 6, 7), (8, 9)))}),
+    (["cuda:0", "cuda:0", "cuda:1", "cuda:1"], 0, 900_096, 4,
+     {"cuda:0": ((0, 1), (0, 28_128), ((0, 1),)),
+      "cuda:1": ((2, 3), (56_256, 84_384), ((2, 3),))}),
+    (["cuda:1", "cuda:0", "cuda:1", "cuda:0"], 1, 128, 8,
+     {"cuda:1": ((0, 2), (0, 8), ((0,), (2,))), "cuda:0": ((1, 3), (4, 12), ((1,), (3,)))}),
+    (["cpu"] * 8, 1, 128, 8, {"cpu": (tuple(range(8)), tuple(range(0, 32, 4)),
+                                      (tuple(range(8)),))}),
+]
+
+
+@pytest.mark.parametrize("devices, axis, width, capacity, want", LAYOUTS)
+def test_card_layout_groups_shards_by_card(devices, axis, width, capacity, want):
+    shape = (7, width) if axis == 1 else (width, 128)
+    shards = tuple(stand_in(d, shape) for d in devices)
+    layout = pm.card_layout(shards, axis, capacity)
+    assert [str(c.device) for c in layout] == list(want)  # first appearance, mesh order
+    for card in layout:
+        assert (card.shards, card.offsets, card.launches) == want[str(card.device)]
+        assert all(len(run) <= capacity for run in card.launches)
+    # Every word of the joined output belongs to exactly one launch.
+    words = sorted(w for c in layout for i, off in zip(c.shards, c.offsets)
+                   for w in range(off, off + width // 32))
+    assert words == list(range(len(devices) * width // 32))
+
+
+def test_card_layout_refuses_widths_off_the_word():
+    with pytest.raises(ValueError, match="multiple of 32"):
+        pm.card_layout((stand_in("cpu", (5, 48)),) * 2, 1, 8)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("epilogue", ["pack", "query_step", "clauses"])
+def test_probe_wrappers_at_odd_term_counts_and_bit_31(n, epilogue):
+    """2, 4 and 8 shards (the 8-shard mesh is one full launch table), T = 5
+    (odd), shift 31 on words whose top bit is set: bit for bit the JAX
+    mesh's words, the unsharded plain version's and, for the query step,
+    its survivor total."""
+    t, k = 5, 3
+    jmesh, tmesh = meshes(n)
+    rng = np.random.default_rng(100 + n)
+    rows = 3 * PARAMS.num_words
+    bank = rng.integers(0, 2**32, size=(rows, 128 * n - 19), dtype=np.uint32)
+    bank[:, ::4] = 0xFFFFFFFF
+    row_idx = rng.integers(0, rows, size=t * k).astype(np.int32)
+    shift = rng.integers(0, 32, size=t * k).astype(np.int32)
+    shift[::2] = 31
+    bank[:, 1::7] |= np.uint32(1 << 31)
+    jbank2d, tbank2d = jm.shard_bank(jmesh, bank), pm.shard_bank(tmesh, bank)
+    assert len(tbank2d) == n and tbank2d[0].shape == (rows, 128)
+    r, s = jnp.asarray(row_idx), jnp.asarray(shift)
+    common = dict(use_pallas=True, interpret=True)
+    flat = torch.from_numpy(np.ascontiguousarray(
+        np.pad(bank, ((0, 0), (0, 128 * n - bank.shape[1])))).view(np.int32))
+    if epilogue == "pack":
+        want = jm.sharded_probe_packed(jmesh, jbank2d, r, s, t, k, **common)
+        got = pm.sharded_probe_packed(tmesh, tbank2d, row_idx, shift, t, k)
+        plain = pk.probe_and_pack(flat, row_idx, shift, t, k)
+    elif epilogue == "query_step":
+        mask = np.array([True, True, False, True, True])
+        want, want_total = jm.sharded_query_step(jmesh, jbank2d, r, s, jnp.asarray(mask), t, k,
+                                                 **common)
+        got, total = pm.sharded_query_step(tmesh, tbank2d, row_idx, shift, 0b11011, t, k)
+        plain = pk.probe_reduce_and_pack(flat, row_idx, shift, t, k, 0b11011)[0]
+        assert total == int(want_total) == int(np.unpackbits(words(got).view(np.uint8)).sum())
+        assert got.shape == (4 * n,)
+    else:
+        clause = np.array([[1, 0, 1, 0, 0], [0, 1, 0, 0, 1], [0, 0, 0, 1, 0]], np.float32)
+        member = np.array([[1, 1, 0], [1, 0, 1]], np.float32)
+        want = jm.sharded_probe_clauses(jmesh, jbank2d, r, s, jnp.asarray(clause),
+                                        jnp.asarray(member), t, k, **common)
+        got = pm.sharded_probe_clauses(tmesh, tbank2d, row_idx, shift, [0b00101, 0b10010, 0b01000],
+                                       [0b011, 0b101], t, k)
+        plain = pk.probe_clauses_pack(flat, row_idx, shift, t, k, [0b00101, 0b10010, 0b01000],
+                                      [0b011, 0b101])
+    np.testing.assert_array_equal(words(got), words(want))
+    np.testing.assert_array_equal(words(got), words(plain))
+    bits = np.unpackbits(words(got).view(np.uint8))
+    assert bits.any() and not bits.all()
+
+
+@pytest.mark.parametrize("epilogue", ["pack", "reduce_and", "clauses"])
+def test_more_shards_than_a_launch_holds(epilogue):
+    """A 20-shard CPU mesh (three launches of at most 8 banks) joins to the
+    unsharded plain version's words, and to the JAX 8-device mesh's on the
+    columns both hold."""
+    n, t, k = 20, 3, 4
+    rng = np.random.default_rng(5)
+    rows = 3 * PARAMS.num_words
+    bank = rng.integers(0, 2**32, size=(rows, 128 * 8), dtype=np.uint32)
+    bank[:, ::3] = 0xFFFFFFFF
+    row_idx = rng.integers(0, rows, size=t * k).astype(np.int32)
+    shift = rng.integers(0, 32, size=t * k).astype(np.int32)
+    tmesh = pm.default_mesh(n, "cpu")
+    tbank2d = pm.shard_bank(tmesh, bank)
+    assert [len(c.launches) for c in pm.card_layout(tbank2d, 1, pk.MAX_SHARDS)] == [3]
+    flat = torch.from_numpy(np.ascontiguousarray(
+        np.pad(bank, ((0, 0), (0, 128 * n - bank.shape[1])))).view(np.int32))
+    jmesh = jm.default_mesh(8)
+    jbank2d = jm.shard_bank(jmesh, bank)
+    r, s = jnp.asarray(row_idx), jnp.asarray(shift)
+    common = dict(use_pallas=True, interpret=True)
+    if epilogue == "pack":
+        got = pm.sharded_probe_packed(tmesh, tbank2d, row_idx, shift, t, k)
+        plain = pk.probe_and_pack(flat, row_idx, shift, t, k)
+        ref = jm.sharded_probe_packed(jmesh, jbank2d, r, s, t, k, **common)
+    elif epilogue == "reduce_and":
+        got = pm.sharded_query_step(tmesh, tbank2d, row_idx, shift, 0b111, t, k)[0]
+        plain = pk.probe_reduce_and_pack(flat, row_idx, shift, t, k, 0b111)[0]
+        ref = jm.sharded_query_step(jmesh, jbank2d, r, s, jnp.ones(t, bool), t, k, **common)[0]
+    else:
+        got = pm.sharded_probe_clauses(tmesh, tbank2d, row_idx, shift, [0b011, 0b100], [0b11],
+                                       t, k)
+        plain = pk.probe_clauses_pack(flat, row_idx, shift, t, k, [0b011, 0b100], [0b11])
+        ref = jm.sharded_probe_clauses(jmesh, jbank2d, r, s,
+                                       jnp.asarray([[1, 1, 0], [0, 0, 1]], jnp.float32),
+                                       jnp.asarray([[1, 1]], jnp.float32), t, k, **common)
+    np.testing.assert_array_equal(words(got), words(plain))
+    np.testing.assert_array_equal(words(got)[..., :32], words(ref))
+    assert not words(got)[..., 32:].any()  # padding columns never match
+
+
 def planted_chunks(G: int, needles, seed: int) -> np.ndarray:
     """Random chunks (bytes >= 0x80 included) with needle r planted on both
     sides of every 512-chunk shard boundary: at start 479 of chunk
@@ -189,7 +331,7 @@ def planted_chunks(G: int, needles, seed: int) -> np.ndarray:
     return chunks
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_scan_wrapper_matches_reference(n):
     jmesh, tmesh = meshes(n)
     G = 512 * n
@@ -218,6 +360,42 @@ def test_scan_wrapper_matches_reference(n):
         for boundary in range(512, G, 512):
             assert bits[r, boundary - 1 - r] and bits[r, boundary + r], (r, boundary)
     assert bits[4:].all()  # padding rows (length 0) match every chunk
+
+
+def test_scan_wrapper_with_more_shards_than_a_launch_holds():
+    """10 shards on the CPU (three launches of at most 4 ranges): matches at
+    bytes 479 and 480 on each side of every shard boundary land as the
+    unsharded plain scan's and the JAX 8-device mesh's on the chunks both
+    hold."""
+    n = 10
+    tmesh = pm.default_mesh(n, "cpu")
+    G = 512 * n
+    needles = [b"\xe9t\xe9!", b"boundary", bytes(range(0x41, 0x41 + 32))]
+    chunks = planted_chunks(G, needles, 11)
+    padded = np.zeros((8, ks.MAX_SCAN_WINDOW), np.int32)  # the JAX kernel's 8 rows
+    lens = np.zeros(8, np.int32)
+    for r, nd in enumerate(needles):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    rows32 = chunks.view(np.int32)
+    trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
+    assert [len(c.launches) for c in pm.card_layout(trows, 0, ks.MAX_SEGMENTS)] == [3]
+    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=3, max_words=9)
+    unsharded = ks.byte_scan_stream(torch.from_numpy(rows32.copy()), padded, lens, n_real=3,
+                                    max_words=9)
+    np.testing.assert_array_equal(words(got), words(unsharded))
+    jmesh = jm.default_mesh(8)
+    head = rows32[: 512 * 8]
+    jrows = jax.device_put(jnp.asarray(head), jm.rows_sharding(jmesh))
+    want = jm.sharded_scan_all_rows(
+        jmesh, jrows, jnp.asarray(padded), jnp.asarray(lens), n_real=3, max_words=9,
+        stream_stride=ks.STREAM_STRIDE, interpret=True,
+    )
+    np.testing.assert_array_equal(words(got)[:, : 512 * 8 // 32], words(want))
+    bits = pm.unpack_bitmap(words(got), G)
+    for r in range(3):
+        for boundary in range(512, G, 512):
+            assert bits[r, boundary - 1 - r] and bits[r, boundary + r], (r, boundary)
 
 
 @pytest.mark.parametrize("axis", ["columns", "rows"])
@@ -360,13 +538,17 @@ def test_backend_on_a_mesh_matches_reference_and_warms_every_shard(monkeypatch):
     for name, entry in tback.stats()["superbanks"].items():
         assert entry["capacity"] == jback.stats()["superbanks"][name]["capacity"] == 512
     seen = []
-    for name in ("probe_and_pack", "probe_reduce_and_pack", "probe_clauses_pack"):
-        orig = getattr(pm, name)
-        monkeypatch.setattr(
-            pm, name, lambda bank, *a, _o=orig, _n=name: seen.append((_n, bank.shape)) or _o(bank, *a)
-        )
+    orig = pm.probe_shards_into
+    monkeypatch.setattr(
+        pm, "probe_shards_into",
+        lambda out, first, banks, *a, **kw: seen.append(
+            (a[-1], first, [b.shape for b in banks])) or orig(out, first, banks, *a, **kw),
+    )
     assert tback.precompile_probe_programs() == 3
-    assert len(seen) == 3 * 4 and {s for _, s in seen} == {(3 * PARAMS.num_words, 128)}
+    # One launch an epilogue covers the four CPU shards (one device).
+    assert sorted(e for e, _, _ in seen) == ["clauses", "pack", "reduce_and"]
+    assert all(first == 0 and shapes == [(3 * PARAMS.num_words, 128)] * 4
+               for _, first, shapes in seen)
 
 
 def test_rowcache_from_a_mesh_reference_scans_the_same():

@@ -242,7 +242,8 @@ def test_single_device_sidecar_loads_into_a_sharded_cache(tmp_path):
 
 
 def test_mesh_shard_launch_failure_fails_the_query(tmp_path, monkeypatch):
-    """No fallback: a shard whose kernel launch fails fails the query."""
+    """No fallback: a failed launch over a card's shards fails the query
+    (no per-shard retry, no host probe)."""
     write_store(bt, tmp_path / "store")
     engine = open_engine(bt, tmp_path / "store", warmup_on_start=False)
     try:
@@ -250,15 +251,16 @@ def test_mesh_shard_launch_failure_fails_the_query(tmp_path, monkeypatch):
         assert engine.query_sync(query, timeout=TIMEOUT)
         calls = []
 
-        def third_shard_fails(bank, *a, _orig=pm.probe_clauses_pack):
-            calls.append(bank)
-            if len(calls) == 3:
+        def clauses_launch_fails(out, first, banks, *a, _orig=pm.probe_shards_into, **kw):
+            calls.append(len(banks))
+            if a[-1] == "clauses":
                 raise RuntimeError("probe kernel launch failed: cudaError 98")
-            return _orig(bank, *a)
+            return _orig(out, first, banks, *a, **kw)
 
-        monkeypatch.setattr(pm, "probe_clauses_pack", third_shard_fails)
+        monkeypatch.setattr(pm, "probe_shards_into", clauses_launch_fails)
         with pytest.raises(RuntimeError, match="cudaError 98"):
             engine.query_sync(query, timeout=TIMEOUT)
+        assert calls == [N]  # one launch covers the mesh's N CPU shards
     finally:
         engine.stop(timeout=TIMEOUT)
 

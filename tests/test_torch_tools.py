@@ -26,7 +26,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from bloomsearch_tpu.bloom.pallas_kernels import ROW_GROUP  # noqa: E402
 from bloomsearch_tpu_torch.kernels import probe as tk  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_compile_cache, gen_bench_datasets, timing  # noqa: E402
-from bloomsearch_tpu_torch.tools import exp_probe_variants  # noqa: E402
+from bloomsearch_tpu_torch.tools import exp_mesh_join, exp_probe_variants  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_kernel_floor as floor  # noqa: E402
 
 
@@ -233,6 +233,34 @@ def test_probe_variants_rewrite_one_define_each():
         assert changed[0][1].startswith(want), name
     with pytest.raises(RuntimeError):
         exp_probe_variants.measure("cpu", log=lambda m: None)
+
+
+@pytest.mark.parametrize("label", ["K3-a pack, T = 4", "K3-b reduce, T = 1",
+                                   "K3-c clauses, T = 4, 2 clauses, 1 member",
+                                   "K3-d scan, n_real = 1", "K3-d scan, n_real = 8"])
+def test_mesh_join_cases_agree_on_a_cpu_mesh(label):
+    """The mesh-join tool's cases on a 4-shard CPU mesh: the package's
+    wrapper, one launch a card into a wider output (``into``) and the
+    per-shard form's single-device calls joined give the same words; the
+    tool itself has no CPU form."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.default_mesh(4, "cpu")
+    bank, stream = exp_mesh_join.mesh_state(mesh.devices, 3, 60, 128, 512)
+    rng = np.random.default_rng(3)
+    case = next(c for c in exp_mesh_join.make_cases(mesh, bank, stream, rng, 60)
+                if c.label == label)
+    want = case.wrapper()
+    assert torch.equal(want, torch.cat([case.single(s) for s in case.shards], dim=-1))
+    words = want.shape[1]
+    out = torch.full((case.out_rows, words + 3), 7, dtype=torch.int32)
+    for card in pm.card_layout(case.shards, case.axis, case.capacity):
+        for run in card.launches:
+            case.into(out, 3 + card.offsets[card.shards.index(run[0])],
+                      [case.shards[i] for i in run])
+    assert torch.equal(out[:, 3:], want) and (out[:, :3] == 7).all()
+    with pytest.raises(RuntimeError):
+        exp_mesh_join.measure("cpu", log=lambda m: None)
 
 
 @pytest.mark.cuda
