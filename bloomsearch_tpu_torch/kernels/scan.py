@@ -22,13 +22,14 @@ row n is set iff needle n occurs at a start < 480 of logical chunk 32w+i
 (the JAX package's ``pack_bitmap`` contract, read as uint32 on the host).
 A needle of length 0 matches every chunk.
 
-``byte_scan_shards_into`` is the launch under the sharded scan (K3,
-``parallel/mesh.py``): up to ``MAX_SEGMENTS`` equal stream shards of one
-card in one segment-mode launch, a range a shard (each range has its own
-base pointer), with its words stored at a given first word of each row of
-an output that may be wider (the joined bitmap of a whole mesh) and may be
-page-locked host memory, which the kernel then writes through its device
-address.
+``byte_scan_ranges_into`` is the launch under the sharded scans (K3,
+``parallel/mesh.py``): up to ``MAX_SEGMENTS`` ranges of one card's stream
+shards in one segment-mode launch (each range has its own base pointer),
+with its words stored at a given first word of each row of an output that
+may be wider (the joined bitmap of a whole mesh) and may be page-locked
+host memory, which the kernel then writes through its device address.
+``byte_scan_shards_into`` is that launch over whole shards (the dense
+sharded scan).
 """
 
 from __future__ import annotations
@@ -275,46 +276,68 @@ def byte_scan_segments(rows32: torch.Tensor, seg_starts: Sequence[int],
     return out
 
 
+def byte_scan_ranges_into(out: torch.Tensor, first_word: int, bases: Sequence[torch.Tensor],
+                          starts: Sequence[int], counts: Sequence[int], needles: np.ndarray,
+                          lens: np.ndarray, *, n_real: int, max_words: int,
+                          count_as: str = "segments") -> None:
+    """Segment mode over up to ``MAX_SEGMENTS`` ranges in one launch:
+    range r reads rows ``[starts[r], starts[r] + counts[r])`` of
+    ``bases[r]`` (stream tensors ``int32[rows, 128]`` of one shape, type and
+    device; each count a positive multiple of 32), and the ranges' packed
+    words land one after another at ``out[:, first_word : first_word +
+    sum(counts)/32]``, ``out`` being ``int32[n_real, >= that]``.
+
+    On CUDA bases: one launch on their card, counted once as a
+    ``count_as`` launch (its shape key holds the launch's chunk count and
+    the range counts); ``out`` lies on that card or in page-locked host
+    memory the card can address, else the launch raises. On CPU bases: the
+    plain version, range by range, into the same slices (counted
+    nowhere)."""
+    n = len(bases)
+    if not 1 <= n <= MAX_SEGMENTS or len(starts) != n or len(counts) != n:
+        raise ValueError(f"{n} bases, {len(starts)} starts and {len(counts)} counts: one "
+                         f"launch takes 1..{MAX_SEGMENTS} ranges")
+    first = bases[0]
+    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
+    for b in bases:
+        if b.shape != first.shape or b.dtype != first.dtype or b.device != first.device \
+                or not b.is_contiguous():
+            raise ValueError("the bases of one launch must be contiguous tensors of one "
+                             "shape, type and device")
+    rows = first.shape[0]
+    starts, counts = [int(v) for v in starts], [int(v) for v in counts]
+    for s, c in zip(starts, counts):
+        if c <= 0 or c % TILE_CHUNKS or s < 0 or s + c > rows:
+            raise ValueError(f"range [{s}, {s + c}) of a {rows}-row base: counts must be "
+                             f"positive multiples of {TILE_CHUNKS} inside the base")
+    chunks = sum(counts)
+    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != n_real or first_word < 0
+            or out.shape[1] < first_word + chunks // 32):
+        raise ValueError(f"out must be a contiguous int32[{n_real}, >= "
+                         f"{first_word + chunks // 32}] tensor")
+    if first.device.type == "cpu":
+        at = first_word
+        for b, s, c in zip(bases, starts, counts):
+            out[:, at : at + c // 32] = byte_scan_plain(b[s : s + c], needle_bytes, real_lens,
+                                                        n_real)
+            at += c // 32
+        return
+    if out.device.type != "cpu" and out.device != first.device:
+        raise ValueError(f"out is on {out.device}, the bases on {first.device}")
+    _launch(first, needle_bytes, real_lens, chunks, starts, counts, out, first_word, bases)
+    _count(count_as, chunks, n_real, counts, max_words)
+
+
 def byte_scan_shards_into(out: torch.Tensor, first_word: int, shards: Sequence[torch.Tensor],
                           needles: np.ndarray, lens: np.ndarray, *, n_real: int,
                           max_words: int) -> None:
     """Dense mode over up to ``MAX_SEGMENTS`` stream shards of one device,
     all ``int32[rows, 128]``, as one stream of their rows in order: shard
     i's packed words land at ``out[:, first_word + i*rows/32 : first_word +
-    (i+1)*rows/32]``, ``out`` being ``int32[n_real, >= first_word +
-    len(shards)*rows/32]``.
-
-    On CUDA shards: one segment-mode launch on their card, a range a shard
-    read in place, counted once as a dense (``stream``) launch whose shape
-    key holds the launch's chunk count and the shards' row counts;
-    ``out`` lies on that card or in page-locked host memory the card can
-    address, else the launch raises. On CPU shards: the plain version,
-    shard by shard, into the same slices (counted nowhere)."""
-    if not 1 <= len(shards) <= MAX_SEGMENTS:
-        raise ValueError(f"{len(shards)} shards: one launch takes 1..{MAX_SEGMENTS}")
-    first = shards[0]
-    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
-    G = first.shape[0]
-    if G == 0 or G % 32:
-        raise ValueError(f"a shard's rows must be a positive multiple of 32, got {G}")
-    for s in shards:
-        if s.shape != first.shape or s.dtype != first.dtype or s.device != first.device \
-                or not s.is_contiguous():
-            raise ValueError("the shards of one launch must be contiguous tensors of one "
-                             "shape, type and device")
-    words = G // 32
-    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
-            or out.shape[0] != n_real or first_word < 0
-            or out.shape[1] < first_word + len(shards) * words):
-        raise ValueError(f"out must be a contiguous int32[{n_real}, >= "
-                         f"{first_word + len(shards) * words}] tensor")
-    if first.device.type == "cpu":
-        for i, s in enumerate(shards):
-            at = first_word + i * words
-            out[:, at : at + words] = byte_scan_plain(s, needle_bytes, real_lens, n_real)
-        return
-    if out.device.type != "cpu" and out.device != first.device:
-        raise ValueError(f"out is on {out.device}, the shards on {first.device}")
-    n = len(shards)
-    _launch(first, needle_bytes, real_lens, n * G, [0] * n, [G] * n, out, first_word, shards)
-    _count("stream", n * G, n_real, [G] * n, max_words)
+    (i+1)*rows/32]``. One ``byte_scan_ranges_into`` launch, a range a whole
+    shard, counted as a dense (``stream``) launch whose shape key holds the
+    launch's chunk count and the shards' row counts."""
+    byte_scan_ranges_into(out, first_word, shards, [0] * len(shards),
+                          [s.shape[0] for s in shards], needles, lens, n_real=n_real,
+                          max_words=max_words, count_as="stream")

@@ -1,5 +1,5 @@
 """Block-axis sharding over several devices (K3): the mesh, its maintenance
-helpers and the four sharded kernel wrappers.
+helpers and the five sharded kernel wrappers.
 
 The JAX package shards the superbank's block axis (``P(None, "blocks")``)
 and the serving stream's chunk axis (``P("blocks", None)``) over a 1-D
@@ -18,18 +18,24 @@ The sharded wrappers group the shards by card (``card_layout``) and make
 one launch a card over all of its shards (``csrc/probe.cu`` in the
 epilogue's mode with a table of shard pointers, or ``csrc/scan.cu`` in
 segment mode with a range a shard), every card's launch issued before any
-is waited for. Each launch stores its words straight into one joined
-bitmap, a page-locked host buffer taken per call from torch's pinned
-allocator, at the word offset of its first shard; the caller then waits on
-one event a card. That bitmap is bit-for-bit the unsharded kernel's output
+is waited for. The sparse scan (``sharded_scan_segments``) reads just the
+requested chunk ranges: each is cut into pieces that lie in one shard
+(``segment_pieces``), and only the cards that hold a piece launch, one
+segment-mode launch over up to 4 of a card's pieces, each read in place.
+Each launch stores its words straight into one joined bitmap, a
+page-locked host buffer taken per call from torch's pinned allocator, at
+the word offset of its first shard or piece; the caller then waits on one
+event a card. That bitmap is bit-for-bit the unsharded kernel's output
 because every shard is a contiguous range whose width is a multiple of 32
-(128·n columns, 512·n chunks). The probe arrays and needles are host
-arrays that travel in each launch's parameters, so nothing is copied to
-the cards first. The mesh is one process driving every device, so no
-``torch.distributed`` collective is needed: the survivor total that the
-reference ``psum``s is one popcount of the joined words. On CPU shards
-the same layout runs the plain versions shard by shard into the same
-slices of the joined output (``kernels/probe.py``, ``kernels/scan.py``).
+(128·n columns, 512·n chunks); the sparse scan's is the single-device
+sparse layout, each range's requested chunks one run of it. The probe
+arrays and needles are host arrays that travel in each launch's
+parameters, so nothing is copied to the cards first. The mesh is one
+process driving every device, so no ``torch.distributed`` collective is
+needed: the survivor total that the reference ``psum``s is one popcount
+of the joined words. On CPU shards the same layout runs the plain versions
+shard by shard (or piece by piece) into the same slices of the joined
+output (``kernels/probe.py``, ``kernels/scan.py``).
 
 The maintenance helpers keep both axes sharded through growth, inserts and
 compaction, which the reference left to XLA's implicit re-split: a column
@@ -50,7 +56,13 @@ import numpy as np
 import torch
 
 from ..kernels.probe import MAX_SHARDS, probe_shards_into
-from ..kernels.scan import CHUNK_BYTES, MAX_SEGMENTS, byte_scan_shards_into
+from ..kernels.scan import (
+    CHUNK_BYTES,
+    MAX_SEGMENTS,
+    TILE_CHUNKS,
+    byte_scan_ranges_into,
+    byte_scan_shards_into,
+)
 
 BLOCK_AXIS = "blocks"
 LANE = 128  # bank columns per shard unit (the JAX package's lane tile)
@@ -293,6 +305,7 @@ _launches = {
     "sharded_query_step": 0,
     "sharded_probe_clauses": 0,
     "sharded_scan_all_rows": 0,
+    "sharded_scan_segments": 0,
 }
 
 
@@ -355,25 +368,32 @@ def card_layout(x: Sharded, axis: int, capacity: int) -> list[CardShards]:
     return out
 
 
-def _joined_call(x: Sharded, axis: int, out_rows: int, capacity: int, launch) -> torch.Tensor:
-    """The joined int32[out_rows, logical/32] bitmap of ``launch(out,
-    first_word, shards)`` over every launch of ``card_layout``: every
-    card's launches issued first, then one event a card waited for. On
-    cards the output is page-locked host memory the kernels write."""
-    shards = _shards(x)
-    layout = card_layout(x, axis, capacity)
+def _joined(shards: tuple, out_rows: int, words: int, plan: list, launch) -> torch.Tensor:
+    """The joined int32[out_rows, words] bitmap of ``launch(out, first_word,
+    arg)`` over ``plan``, ``[(device, [(first word, arg), ...]), ...]``:
+    every card's launches issued first, then one event a card waited for.
+    On cards the output is page-locked host memory the kernels write."""
     on_cards = shards[0].device.type == "cuda"
-    out = torch.empty((out_rows, logical_size(x, axis) // 32), dtype=torch.int32,
-                      pin_memory=on_cards)
+    out = torch.empty((out_rows, words), dtype=torch.int32, pin_memory=on_cards)
     done = []
-    for card in layout:
-        for run in card.launches:
-            launch(out, card.offsets[card.shards.index(run[0])], [shards[i] for i in run])
+    for device, launches in plan:
+        for first_word, arg in launches:
+            launch(out, first_word, arg)
         if on_cards:
-            done.append(torch.cuda.current_stream(card.device).record_event())
+            done.append(torch.cuda.current_stream(device).record_event())
     for event in done:
         event.synchronize()
     return out
+
+
+def _joined_call(x: Sharded, axis: int, out_rows: int, capacity: int, launch) -> torch.Tensor:
+    """The joined int32[out_rows, logical/32] bitmap of ``launch(out,
+    first_word, shards)`` over every launch of ``card_layout``."""
+    shards = _shards(x)
+    plan = [(card.device, [(card.offsets[card.shards.index(run[0])], [shards[i] for i in run])
+                           for run in card.launches])
+            for card in card_layout(x, axis, capacity)]
+    return _joined(shards, out_rows, logical_size(x, axis) // 32, plan, launch)
 
 
 def sharded_probe_packed(mesh: Mesh, bank2d: Sharded, row_idx, shift, T: int,
@@ -429,3 +449,112 @@ def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,
                               max_words=max_words)))
     _count("sharded_scan_all_rows", _shards(rows32))
     return out
+
+
+# --- The sparse sharded scan --------------------------------------------------
+
+
+def segment_pieces(starts: Sequence[int], counts: Sequence[int], shard_rows: int,
+                   n_shards: int) -> tuple[list[tuple[int, int, int]], list[int]]:
+    """Requested chunk ranges ``[starts[r], starts[r] + counts[r])`` of a
+    stream sharded into ``n_shards`` shards of ``shard_rows`` rows ->
+    (pieces, range_base).
+
+    A piece ``(shard, first row in the shard, rows)`` is what one range of
+    a segment-mode launch reads: its rows are a multiple of 32 and lie in
+    one shard. Pieces are laid end to end in the output in order, and
+    range r's requested chunks are one run of it from logical output chunk
+    ``range_base[r]`` on. A range inside one shard is one piece of its
+    count rounded up to 32, clamped into the shard where that would cross
+    the shard's end (as ``segment_layout`` clamps into the stream). A range
+    that crosses boundaries is cut there: a first piece that ends at the
+    first boundary and starts as far before it as rounding up asks, then a
+    piece from the first row of every later shard it touches (whole
+    shards in the middle), each rounded up to 32; so every piece starts on
+    an output word and the requested chunks stay adjacent."""
+    if shard_rows <= 0 or shard_rows % TILE_CHUNKS or n_shards < 1:
+        raise ValueError(f"{n_shards} shards of {shard_rows} rows: want a positive multiple "
+                         f"of {TILE_CHUNKS} rows a shard")
+    total = shard_rows * n_shards
+    pieces: list[tuple[int, int, int]] = []
+    range_base: list[int] = []
+    at = 0  # logical output chunk of the next piece
+    for s, n in zip(starts, counts):
+        s, n = int(s), int(n)
+        if n <= 0 or s < 0 or s + n > total:
+            raise ValueError(f"range [{s}, {s + n}) outside a {total}-chunk stream")
+        first, last = s // shard_rows, (s + n - 1) // shard_rows
+        if first == last:
+            rows = -(-n // TILE_CHUNKS) * TILE_CHUNKS
+            read = min(s - first * shard_rows, shard_rows - rows)
+            range_base.append(at + s - first * shard_rows - read)
+            pieces.append((first, read, rows))
+            at += rows
+            continue
+        head = (first + 1) * shard_rows - s  # requested rows before the boundary
+        rows = -(-head // TILE_CHUNKS) * TILE_CHUNKS
+        range_base.append(at + rows - head)
+        pieces.append((first, shard_rows - rows, rows))
+        at += rows
+        for i in range(first + 1, last + 1):
+            rows = -(-min(s + n - i * shard_rows, shard_rows) // TILE_CHUNKS) * TILE_CHUNKS
+            pieces.append((i, 0, rows))
+            at += rows
+    return pieces, range_base
+
+
+def piece_launches(pieces: Sequence[tuple[int, int, int]], devices: Sequence,
+                   capacity: int) -> list[tuple]:
+    """Group ``segment_pieces``'s pieces, shard i on ``devices[i]``, into
+    launches: one launch takes up to ``capacity`` pieces that follow one
+    another in the output and lie on one device -> ``[(device, [(first
+    word, piece indices), ...]), ...]``, devices in the order of their
+    first piece. A card whose shards are neighbours in the mesh makes
+    ceil(its pieces / capacity) launches; only cards that hold a piece
+    launch."""
+    plan: dict = {}
+    word, prev = 0, None
+    for i, (shard, _, rows) in enumerate(pieces):
+        dev = devices[shard]
+        launches = plan.setdefault(dev, [])
+        if dev == prev and len(launches[-1][1]) < capacity:
+            launches[-1][1].append(i)
+        else:
+            launches.append((word, [i]))
+        prev = dev
+        word += rows // TILE_CHUNKS
+    return list(plan.items())
+
+
+def sharded_scan_segments(mesh: Mesh, rows32: Sharded, seg_starts: Sequence[int],
+                          needles: np.ndarray, lens: np.ndarray, *, n_real: int,
+                          max_words: int,
+                          seg_chunks: Sequence[int]) -> tuple[torch.Tensor, list[int]]:
+    """Scan just the requested chunk ranges (``seg_starts``, ``seg_chunks``
+    chunks each) of a sharded stream, each read in place on the card that
+    holds it -> (packed int32[n_real, total/32] on the host, range_base).
+
+    The single-device sparse layout: the ranges' pieces
+    (``segment_pieces``) laid end to end, range r's requested chunks at
+    logical output chunk ``range_base[r]`` on; the chunks added by rounding
+    are scanned and ignored by callers. One segment-mode launch covers up
+    to ``MAX_SEGMENTS`` pieces of one card (``piece_launches``), and only
+    cards that hold a piece launch."""
+    shards = _shards(rows32)
+    counts = list(seg_chunks)
+    if len(counts) != len(seg_starts):
+        raise ValueError(f"{len(seg_starts)} starts and {len(counts)} chunk counts")
+    pieces, range_base = segment_pieces(seg_starts, counts, shards[0].shape[0], len(shards))
+    plan = [(dev, [(word, [pieces[i] for i in idx]) for word, idx in launches])
+            for dev, launches in piece_launches(pieces, [s.device for s in shards],
+                                                MAX_SEGMENTS)]
+    words = sum(rows for _, _, rows in pieces) // TILE_CHUNKS
+
+    def launch(out, first_word, part):
+        byte_scan_ranges_into(out, first_word, [shards[i] for i, _, _ in part],
+                              [read for _, read, _ in part], [rows for _, _, rows in part],
+                              needles, lens, n_real=n_real, max_words=max_words)
+
+    out = _joined(shards, n_real, words, plan, launch)
+    _count("sharded_scan_segments", shards)
+    return out, range_base

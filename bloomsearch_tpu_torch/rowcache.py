@@ -46,9 +46,11 @@ The matrix lives on one device, or with a mesh (``mesh_devices``,
 parallel/mesh.py) it shards its chunk axis: a tuple of ``int32[cap / n,
 128]`` shards, shard i holding logical chunks ``[i*cap/n, (i+1)*cap/n)``
 on mesh device i. Pins, growth and compaction keep it sharded (a pin's
-rows may straddle shards), and every scan on a mesh is the dense scan over
-all shards (``sharded_scan_all_rows``): the segment mode is single-device,
-as in the reference.
+rows may straddle shards). A mesh chooses sparse or dense by the
+single-device rule: a dense scan covers every shard
+(``sharded_scan_all_rows``), a sparse one reads just the requested ranges
+on the cards that hold them (``sharded_scan_segments``), where the
+reference scans every shard in full.
 
 Snapshot consistency without immutable arrays (the rule of bloom/bank.py):
 a scan captures ``matrix`` (the whole tuple of shards on a mesh) and the
@@ -88,6 +90,7 @@ from .parallel.mesh import (
     mesh_for,
     sharded_pad_rows,
     sharded_scan_all_rows,
+    sharded_scan_segments,
     sharded_take_rows,
     sharded_update_rows,
     sharded_zeros_rows,
@@ -889,7 +892,7 @@ class DeviceRowCache:
     def precompile_scan_programs(self, blocks: list, yield_to=None) -> int:
         """Launch the scan kernel once in dense mode and once in segment
         mode over the current matrix, and fetch both results -> launches.
-        On a mesh: one dense sharded launch (every shard), no segment one.
+        On a mesh: one dense sharded call (every shard) and one sparse one.
 
         A one-time check that the kernel launches on this stream (there is
         no per-shape compile; ``load_scan_kernel`` loads the library).
@@ -916,16 +919,22 @@ class DeviceRowCache:
             sharded_scan_all_rows(
                 self.mesh, matrix, padded, lens, n_real=1, max_words=max_words
             )
-            return 1
-        byte_scan_stream(matrix, padded, lens, n_real=1, max_words=max_words).cpu()
+        else:
+            byte_scan_stream(matrix, padded, lens, n_real=1, max_words=max_words).cpu()
         launched = 1
         if seg_chunks * 4 <= phys_cap:
             if yield_to is not None:
                 yield_to()
-            byte_scan_segments(
-                matrix, [0], padded, lens, n_real=1,
-                max_words=max_words, seg_chunks=max(max_chunks, 1),
-            ).cpu()
+            if self.mesh is not None:
+                sharded_scan_segments(
+                    self.mesh, matrix, [0], padded, lens, n_real=1,
+                    max_words=max_words, seg_chunks=[max(max_chunks, 1)],
+                )
+            else:
+                byte_scan_segments(
+                    matrix, [0], padded, lens, n_real=1,
+                    max_words=max_words, seg_chunks=max(max_chunks, 1),
+                ).cpu()
             launched += 1
         return launched
 
@@ -1058,14 +1067,14 @@ class DeviceRowCache:
         missing = [nd for nd in union if nd not in cached]
 
         # Adaptive scan shape for needles not served from cache:
-        #  - DENSE (requests cover a meaningful fraction of residency, or a
-        #    mesh shards the stream): scan EVERY resident chunk; the
-        #    full-residency bitmap also feeds the needle cache.
+        #  - DENSE (requests cover a meaningful fraction of residency): scan
+        #    EVERY resident chunk; the full-residency bitmap also feeds the
+        #    needle cache.
         #  - SPARSE (few blocks of a big stream — needle queries at
         #    reference scale ask for 3 of 240): the kernel's segment mode
-        #    scans just the requested chunk segments in place; both the
-        #    scanned bytes and the returned bitmap shrink by the sparsity
-        #    factor.
+        #    scans just the requested chunk segments in place (on a mesh,
+        #    on the cards that hold them); both the scanned bytes and the
+        #    returned bitmap shrink by the sparsity factor.
         phys_cap = logical_size(matrix, 0)
         # Unique requested chunk ranges (chunk_start, n_chunks).
         ranges = sorted(
@@ -1080,20 +1089,21 @@ class DeviceRowCache:
         # shapes (pow2 segments of at least 512 chunks, a pow2 count of at
         # most 4), so both packages launch the same modes: single needle
         # queries (1-4 blocks) stay sparse, and bursts of coalesced
-        # concurrent requests fall through to the dense scan.
+        # concurrent requests fall through to the dense scan. A mesh takes
+        # the same rule on the same logical capacity.
         seg_chunks = _round_up_pow2(max((n for _, n in ranges), default=1))
         seg_chunks = max(seg_chunks, 512)
         n_segs = _round_up_pow2(len(ranges)) if ranges else 0
         sparse = (
-            self.mesh is None
-            and 0 < n_segs <= _SPARSE_MAX_SEGS
+            0 < n_segs <= _SPARSE_MAX_SEGS
             and seg_chunks <= phys_cap
             and n_segs * seg_chunks * 4 <= phys_cap
         )
-        if sparse:
+        if sparse and self.mesh is None:
             # A sparse launch reads just the requested ranges, each rounded
             # up to the kernel's 32-chunk tile and clamped into the stream;
-            # range (ps, pn) starts at logical chunk range_base[(ps, pn)].
+            # range (ps, pn) starts at logical chunk range_base[(ps, pn)]
+            # (on a mesh, sharded_scan_segments returns its own).
             starts, counts = _scan_kernel.segment_layout(
                 [ps for ps, _ in ranges], [pn for _, pn in ranges], phys_cap
             )
@@ -1122,7 +1132,14 @@ class DeviceRowCache:
                     padded[row, : len(needle)] = np.frombuffer(needle, dtype=np.uint8)
                     lens[row] = len(needle)
                 self.launches += 1  # one per DEVICE launch, not per pass
-                if sparse:
+                if sparse and self.mesh is not None:
+                    out, bases = sharded_scan_segments(
+                        self.mesh, matrix, [ps for ps, _ in ranges], padded, lens,
+                        n_real=n_real, max_words=max_words,
+                        seg_chunks=[pn for _, pn in ranges],
+                    )
+                    range_base = dict(zip(ranges, bases))
+                elif sparse:
                     out = byte_scan_segments(
                         matrix, [ps for ps, _ in ranges], padded, lens,
                         n_real=n_real, max_words=max_words,

@@ -34,7 +34,17 @@ copy, mapped, old), and each is split into:
 - ``join_ms``: host time of the join.
 
 Events around every launch cost host time, so the breakdown is taken in
-calls of its own, not in the timed ones. Data is random, made on the card
+calls of its own, not in the timed ones.
+
+The sparse case (K3-e, ``sharded_scan_segments``): three requested chunk
+ranges of a refscale block's size (one across a shard boundary, one inside
+a shard, one ending at the stream's end; 8 needles, the main path's most
+launched segment shape) read in place on the cards that hold them, timed
+in turns (dense, sparse, single, single, sparse, dense) against the dense
+sharded call over every chunk (K3-d) and the single-device segment launch
+over the same ranges of the stream joined on one card, its answers equal
+to both at every requested chunk, with ``host_us`` per step of the sparse
+call. Data is random, made on the card
 from the seed; ``chip_smoke.py`` runs the same turns on the engine's
 resident refscale state.
 
@@ -370,6 +380,166 @@ def make_cases(mesh, bank: tuple, stream: tuple, rng: np.random.Generator,
     ]
 
 
+@dataclasses.dataclass
+class SparseCase:
+    """A sparse sharded scan: the requested ranges (first chunk, chunks) of
+    the sharded stream ``shards``, the same stream joined on one card
+    (``full``, the single-device call's) and the needles."""
+
+    label: str
+    mesh: object
+    shards: tuple
+    full: torch.Tensor
+    starts: list
+    counts: list
+    needles: np.ndarray
+    lens: np.ndarray
+    n_real: int
+    max_words: int = 9
+
+    def _kw(self) -> dict:
+        return dict(n_real=self.n_real, max_words=self.max_words)
+
+    def sharded(self) -> tuple:
+        """The package's call -> (its words on the host, range_base)."""
+        return pm.sharded_scan_segments(self.mesh, self.shards, self.starts, self.needles,
+                                        self.lens, seg_chunks=self.counts, **self._kw())
+
+    def dense(self) -> torch.Tensor:
+        return pm.sharded_scan_all_rows(self.mesh, self.shards, self.needles, self.lens,
+                                        **self._kw())
+
+    def single(self) -> torch.Tensor:
+        """The single-device segment launch and its copy to the host."""
+        return ks.byte_scan_segments(self.full, self.starts, self.needles, self.lens,
+                                     seg_chunks=self.counts, **self._kw()).cpu()
+
+    def single_bases(self) -> list[int]:
+        """Where each range's requested chunks sit in ``single()``'s words."""
+        read, rounded = ks.segment_layout(self.starts, self.counts, self.full.shape[0])
+        return [int(off) + s - r
+                for off, s, r in zip(np.cumsum([0] + rounded[:-1]), self.starts, read)]
+
+
+def requested_bits(words: torch.Tensor, firsts, counts) -> list[np.ndarray]:
+    """Each range's bits, bool[rows, count], from its first logical chunk
+    of a packed int32 bitmap on the host."""
+    raw = np.unpackbits(np.ascontiguousarray(words.numpy()).view(np.uint8), axis=-1,
+                        bitorder="little")
+    return [raw[:, f : f + c].astype(bool) for f, c in zip(firsts, counts)]
+
+
+def sparse_case(mesh, stream: tuple, full: torch.Tensor, rng: np.random.Generator,
+                needles=None, block: int = 15_307) -> SparseCase:
+    """Three ranges of ``block`` chunks (a refscale block; a quarter shard
+    at most): one across the first shard boundary, one inside shard 1 and
+    one ending at the stream's end; 8 random needles unless given as
+    (int32[n, 32], int32[n])."""
+    rows = stream[0].shape[0]
+    total = rows * len(stream)
+    block = min(block, rows // 4)
+    starts = [rows - block // 2 - 5, rows + rows // 3, total - block]
+    padded, lens = needles if needles is not None else needles_of(8, rng)
+    return SparseCase(f"K3-e segments, 3 ranges, n_real = {len(lens)}", mesh, stream, full,
+                      starts, [block] * 3, padded, lens, len(lens))
+
+
+def check_sparse(case: SparseCase) -> list[np.ndarray]:
+    """The sparse call, the dense sharded call and the single-device call
+    agree at every requested chunk -> the requested bits."""
+    words, bases = case.sharded()
+    got = requested_bits(words, bases, case.counts)
+    for label, other in (("dense sharded", requested_bits(case.dense(), case.starts,
+                                                           case.counts)),
+                         ("single-device", requested_bits(case.single(), case.single_bases(),
+                                                          case.counts))):
+        if not all(np.array_equal(a, b) for a, b in zip(got, other)):
+            raise AssertionError(f"{case.label}: the sparse call differs from the {label} call")
+    return got
+
+
+def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
+    """Median host-clock us of each step of one sparse call (``host_costs``'
+    rule: a launch is its issue alone; a step with a wait includes the
+    card's turnaround) beside the whole calls."""
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    rows = case.shards[0].shape[0]
+    pieces, _ = pm.segment_pieces(case.starts, case.counts, rows, len(case.shards))
+    plan = pm.piece_launches(pieces, [s.device for s in case.shards], ks.MAX_SEGMENTS)
+    words = sum(n for _, _, n in pieces) // 32
+    pinned = torch.empty((case.n_real, words), dtype=torch.int32, pin_memory=True)
+    dev, launches = plan[0]
+    first, idx = launches[0]
+    part = [pieces[i] for i in idx]
+
+    def us(fn) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        return statistics.median(times)
+
+    def launch():
+        ks.byte_scan_ranges_into(pinned, first, [case.shards[i] for i, _, _ in part],
+                                 [r for _, r, _ in part], [n for _, _, n in part],
+                                 case.needles, case.lens, n_real=case.n_real,
+                                 max_words=case.max_words)
+
+    steps = {
+        "segment_pieces": lambda: pm.segment_pieces(case.starts, case.counts, rows,
+                                                    len(case.shards)),
+        "piece_launches": lambda: pm.piece_launches(pieces, [s.device for s in case.shards],
+                                                    ks.MAX_SEGMENTS),
+        "pinned buffer": lambda: torch.empty((case.n_real, words), dtype=torch.int32,
+                                             pin_memory=True),
+        "needles check": lambda: ks._check(case.shards[0], case.needles, case.lens,
+                                           case.n_real, case.max_words),
+        "a card's launch into the pinned buffer": launch,
+        "a card's launch, event wait": lambda: (
+            launch(), torch.cuda.current_stream(dev).record_event().synchronize()),
+        "sharded_scan_segments": case.sharded,
+        "single-device segment call and copy": case.single,
+        "sharded_scan_all_rows": case.dense,
+    }
+    return {name: us(fn) for name, fn in steps.items()}
+
+
+def sparse_turns(case: SparseCase, reps: int = 25, log=log) -> dict:
+    """The sparse case (module doc): checked, timed in turns against the
+    dense sharded call and the single-device call, with the launches one
+    sparse call makes a card and ``host_us``."""
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    check_sparse(case)
+    before = launch_counts()
+    case.sharded()
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    pieces, _ = pm.segment_pieces(case.starts, case.counts, case.shards[0].shape[0],
+                                  len(case.shards))
+    plan = pm.piece_launches(pieces, [s.device for s in case.shards], ks.MAX_SEGMENTS)
+    calls = {"dense": case.dense, "sparse": case.sharded, "single": case.single}
+    times: dict = {name: [] for name in calls}
+    for name in ("dense", "sparse", "single", "single", "sparse", "dense"):
+        times[name].append(call_ms(calls[name], devices, reps))
+    result = {"call_ms": times, "kernel_launches_per_call": launched, "pieces": len(pieces),
+              "launches_per_card": {str(d): len(ls) for d, ls in plan},
+              "requested_chunks": sum(case.counts),
+              "read_chunks": sum(n for _, _, n in pieces),
+              "host_us": sparse_host_us(case)}
+    log(f"{case.label} on {len(case.shards)} shards, {len(devices)} card(s): calls "
+        + ", ".join(f"{f} {t[0]:.6f}/{t[1]:.6f}" for f, t in times.items())
+        + f" ms; {len(pieces)} pieces, launches a card {result['launches_per_card']}, "
+        f"kernel launches a call {launched}; host us a step "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["host_us"].items()))
+    return result
+
+
 def launch_counts() -> dict:
     return {**{f"probe {k}": v for k, v in pk.launch_counts().items()},
             **{f"scan {k}": v for k, v in ks.launch_counts().items()}}
@@ -517,7 +687,10 @@ def measure(device="cuda", shards: int = 4, reps: int = 25, seed: int = 0, log=l
             result[name]["host_us"] = host_costs(mesh, bank, stream)
             log(f"{name}: host us a step " + ", ".join(
                 f"{k} {v:.2f}" for k, v in result[name]["host_us"].items()))
-            del bank, stream
+            full = torch.cat([s.to(device) for s in stream])
+            case = sparse_case(mesh, stream, full, rng)
+            result[name][case.label] = sparse_turns(case, reps, log)
+            del bank, stream, full, case
             for d in mesh.distinct_devices():
                 with torch.cuda.device(d):
                     torch.cuda.empty_cache()

@@ -52,27 +52,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the chunks the query asked for), dense at 1, 2, 4 and 8 of the
    engine's needles, with ``--old-scan`` an earlier scan kernel against
    this one in turns (``turns_against_old_scan``), and a restarted engine
-   that loads every block from the sidecar;
+   that loads every block from the sidecar and times every shape (needle
+   cache off, as phase 8's mesh engine);
 8. mesh (K3): (a) the serving engine's resident superbanks and stream
    placed with ``shard_bank`` and the row helpers onto a 4-shard mesh (four
    cards when four are visible, else cuda:0 four times), the needle
-   queries' probe arrays and scan needles driven through the four sharded
-   wrappers, each result bit-identical to the unsharded kernel on the same
-   logical content and to the plain version; then each wrapper at its
-   main-path shape in three forms timed in turns as a caller sees them
-   (``tools/exp_mesh_join.py``: the package's one launch a card into the
-   page-locked joined bitmap, the earlier launch, copy and host join a
+   queries' probe arrays and scan needles driven through the four dense
+   sharded wrappers, each result bit-identical to the unsharded kernel on
+   the same logical content and to the plain version; then each wrapper
+   at its main-path shape in three forms timed in turns as a caller sees
+   them (``tools/exp_mesh_join.py``: the package's one launch a card into
+   the page-locked joined bitmap, the earlier launch, copy and host join a
    shard, and a device buffer with one strided copy a launch), each form's
    breakdown (issue, each card's launch spans, copies, wait, join) and the
    kernel launches one sharded call makes, beside the single-device
    call and device times of the unsharded launch and of one launch over a
-   card's shards; (b) the main path: the serving engine restarted from
-   phase 7's sidecar over a mesh (every card with its default
-   ``mesh_devices=None`` when two or more are visible, else the four
-   shards on cuda:0), every query shape and 16 threads against the
-   host-probe engine's rows, the K3 and kernel counters set to 0 just
-   before its queries and read just after, the kernel launches exactly
-   one a card for each sharded call; with two or more cards also
+   card's shards; the sparse sharded scan (``sharded_scan_segments``) at
+   every segment launch phase 7 recorded, at a range across a shard
+   boundary and at one ending at the stream's end, each bit-identical at
+   every requested chunk to the unsharded segment launch and the plain
+   version, and phase 7's most launched segment shape timed in turns as a
+   caller sees it beside the dense sharded call and the single-device
+   segment call, with its bound on the busiest card; (b) the main path:
+   the serving engine restarted from phase 7's sidecar over a mesh (every
+   card with its default ``mesh_devices=None`` when two or more are
+   visible, else the four shards on cuda:0), every query shape and 16
+   threads against the host-probe engine's rows, each shape's warm p50
+   beside phase 7's restarted one-card engine's, the K3 and kernel
+   counters set to 0 just
+   before its queries and read just after; each shape must scan in the
+   modes phase 7 did (sparse on a mesh: the sharded segment scan), each
+   sparse call launch only on the cards that hold its pieces,
+   ceil(pieces / 4) launches a card, and each dense sharded call make
+   exactly one launch a card; with two or more cards also
    ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()`` against
    the plain version;
 9. tools: (a) the probe's access-pattern floor kernel (K1f,
@@ -138,6 +150,9 @@ MESH_WRAPPERS = {
     "sharded_query_step": (PROBE_SOURCE, f"{MESH_PY}:167"),
     "sharded_probe_clauses": (PROBE_SOURCE, f"{MESH_PY}:215"),
     "sharded_scan_all_rows": (SCAN_SOURCE, f"{MESH_PY}:330"),
+    # The reference scans every shard in full on a mesh; this is its
+    # single-device scan_segments over the shards.
+    "sharded_scan_segments": (SCAN_SOURCE, "bloomsearch_tpu/rowcache.py:299"),
 }
 MESH_SHARDS = 4
 PHASE3_T = (1, 2, 3, 4, 5, 8, 12, 16)  # K1's term counts at the refscale width
@@ -1390,11 +1405,17 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
         with engine._device_backend._lock:
             banks = [(sb.bank2d, sb.m_bits, sb.k, sb.layout, sb.num_words)
                      for sb in engine._device_backend._superbanks.values()]
-        # The resident state, the needles the queries scanned for and the
-        # engine's settings, for phase 8.
+        # The resident state, the needles the queries scanned for, every
+        # segment launch shape they made (real needles only), the most
+        # launched one and the engine's settings, for phase 8 (with the
+        # restarted engine's warm p50 and scan launches a shape, below).
         out["resident"] = {
             "banks": banks, "matrix": matrix,
             "needles": list(recorder.needle_sets.values())[:6],
+            "segment_args": [args for key, args in sorted(recorder.args.items())
+                             if key[0] == "segments"
+                             and np.asarray(args["lens"])[: args["n_real"]].all()],
+            "top_segments": out["scan_cases"]["segments"]["args"],
             "shapes": shapes, "results": results, "store": store,
             "serving": serving, "n_blocks": n_blocks,
         }
@@ -1411,11 +1432,24 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
         hits = engine.stats()["serving_cache"]["hits"]
         if hits != n_blocks:
             raise AssertionError(f"restart: {hits} sidecar hits, want {n_blocks}")
-        for name in ("token", "field", "field_token", "or_tree"):
-            if rowset(engine.query_sync(shapes[name], timeout=600)) != results[name]:
-                raise AssertionError(f"restart: {name} rows differ")
-        log(f"restart: warmup {out['restart_warmup_s']:.3f} s, {hits} sidecar hits, "
-            f"needle rows equal")
+        # Every shape timed as phase 8's mesh engine is (restarted from the
+        # same sidecar, needle cache off), with the scan launches per mode.
+        engine._row_cache.needle_cache_enabled = False
+        restart = {}
+        for name, query in shapes.items():
+            times = []
+            before = ks.launch_counts()
+            for _ in range(reps):
+                ms, rows = timed(engine, query)
+                if rowset(rows) != results[name]:
+                    raise AssertionError(f"restart: {name} rows differ")
+                times.append(ms)
+            after = ks.launch_counts()
+            restart[name] = (statistics.median(times), {k: after[k] - before[k] for k in after})
+            out[f"restart_warm_p50_ms_{name}"] = restart[name][0]
+        out["resident"]["one_card"] = restart
+        log(f"restart: warmup {out['restart_warmup_s']:.3f} s, {hits} sidecar hits, rows "
+            f"equal; warm p50 and scan launches a shape {restart}")
     finally:
         if engine is not None:
             engine.stop(timeout=600)
@@ -1628,6 +1662,8 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
         lambda sh: ks.byte_scan_stream(sh, args["needles"], args["lens"], **kw), matrix,
         lambda i: plain_scan(ks, matrix, args["needles"], args["lens"], args["n_real"]),
         max(scan_bounds), 5, plain_reps=1)
+    entries["sharded_scan_segments"] = mesh_segment_scans(dev, mesh, stream, matrix, resident,
+                                                          reps)
     del sharded, joined, stream
     torch.cuda.empty_cache()
 
@@ -1653,6 +1689,96 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     for name, entry in entries.items():
         entry.update({"launches": engine["launches"][name], "max_abs_err": 0})
     return entries, engine
+
+
+def busiest_card_bound(mesh, shard_rows: int, starts, counts, bits, real_lens) -> tuple:
+    """The scan bound of the card that holds the most requested chunks:
+    those chunks (each read once), the needles and their bits over the
+    memory rate, or their compares over the 32-bit rate (``scan_bound``,
+    the hits counted from ``bits``, each range's bool[n_real, count])."""
+    per: dict = {}
+    for s, n, b in zip(starts, counts, bits):
+        for i, d in enumerate(mesh.devices):
+            lo, hi = max(s, i * shard_rows), min(s + n, (i + 1) * shard_rows)
+            if lo < hi:
+                chunks, hits = per.get(d, (0, np.zeros(len(real_lens), np.int64)))
+                per[d] = (chunks + hi - lo, hits + b[: len(real_lens), lo - s : hi - s].sum(axis=1))
+    return max(scan_bound(c, real_lens, h.tolist()) for c, h in per.values())
+
+
+def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident: dict,
+                       reps: int) -> dict:
+    """Step a for the sparse sharded scan (K3-e): ``sharded_scan_segments``
+    at every segment launch shape phase 7 recorded and at two synthesised
+    ranges of a refscale block's size, one across the first shard boundary
+    and one ending at the stream's end; each answer, at every requested
+    chunk, bit-identical to the unsharded segment launch and the plain
+    version on the mesh's logical stream. Then phase 7's most launched
+    segment shape timed in turns as a caller sees it
+    (``tools/exp_mesh_join.sparse_turns``: the dense sharded call, the
+    sparse call, the single-device segment call and copy), with the launches
+    a call makes a card, ``host_us`` and the busiest card's bound -> its
+    kernels-line entry."""
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    rows = stream[0].shape[0]
+    total = rows * len(stream)
+    flat = torch.cat([sh.to(dev) for sh in stream])  # the logical stream on one card
+    top = resident["top_segments"]
+    block = SEG_CHUNKS - 1_000
+    cases = [(args["starts"], args["seg_chunks"], args) for args in resident["segment_args"]]
+    cases.append(([rows - block // 2 - 3, total - block], [block, block], top))
+    for starts, counts, args in cases:
+        kw = dict(n_real=args["n_real"], max_words=args["max_words"])
+        got, base = pm.sharded_scan_segments(mesh, stream, starts, args["needles"], args["lens"],
+                                             seg_chunks=counts, **kw)
+        single = ks.byte_scan_segments(flat, starts, args["needles"], args["lens"],
+                                       seg_chunks=counts, **kw).cpu()
+        plain = plain_scan(ks, flat, args["needles"], args["lens"], args["n_real"], starts,
+                           counts).cpu()
+        read, rounded = ks.segment_layout(starts, counts, total)
+        single_base = [int(o) + st - r for o, st, r in zip(np.cumsum([0] + rounded[:-1]), starts,
+                                                             read)]
+        mine = mj.requested_bits(got, base, counts)
+        for label, other in (("unsharded segment launch", single), ("plain version", plain)):
+            theirs = mj.requested_bits(other, single_base, counts)
+            if not all(np.array_equal(a, b) for a, b in zip(mine, theirs)):
+                raise AssertionError(f"sharded_scan_segments over {list(zip(starts, counts))} "
+                                     f"differs from the {label}")
+        pieces, _ = pm.segment_pieces(starts, counts, rows, len(stream))
+        log(f"mesh: sharded_scan_segments over {list(zip(starts, counts))} (n_real "
+            f"{args['n_real']}): {len(pieces)} pieces on shards {[i for i, _, _ in pieces]}, "
+            f"bit-identical to the unsharded segment launch and the plain version at every "
+            f"requested chunk")
+    del flat
+
+    starts, counts = top["starts"], top["seg_chunks"]
+    case = mj.SparseCase(f"K3-e main path ({len(starts)} ranges, n_real = {top['n_real']})",
+                         mesh, stream, matrix, starts, counts, top["needles"], top["lens"],
+                         top["n_real"], top["max_words"])
+    turns = mj.sparse_turns(case, reps, log=log)
+    real_lens = [int(v) for v in top["lens"][: top["n_real"]]]
+    words, base = case.sharded()
+    bound = busiest_card_bound(mesh, rows, starts, counts,
+                               mj.requested_bits(words, base, counts), real_lens)
+    entry = {
+        "ms": statistics.mean(turns["call_ms"]["sparse"]),
+        "sparse_ms": turns["call_ms"]["sparse"], "dense_call_ms": turns["call_ms"]["dense"],
+        "single_device_call_ms": turns["call_ms"]["single"],
+        "plain_ms": event_ms(lambda i: plain_scan(ks, matrix, top["needles"], top["lens"],
+                                                  top["n_real"], starts, counts),
+                             3, hide_host=True),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "cards": len(turns["launches_per_card"]),
+        "kernel_launches_per_call": turns["kernel_launches_per_call"],
+        "pieces": turns["pieces"], "launches_per_card": turns["launches_per_card"],
+        "host_us": turns["host_us"],
+    }
+    log(f"mesh {case.label}: " + " ".join(
+        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}" for k, v in entry.items()))
+    return entry
 
 
 def time_mesh_case(label: str, form, copy_lib, unsharded_call, kernel, full, plain, bound,
@@ -1702,7 +1828,12 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
     the engine never builds a mesh with a repeated device itself, so the two
     modules that resolve ``mesh_devices`` are handed ``mesh`` while the
     engine is built. The K3 and scan counters are set to 0 just before the
-    queries and read just after."""
+    queries and read just after. Each shape must launch the scan modes
+    phase 7's restarted one-card engine launched for it (sparse: the
+    sharded segment scan), and its warm p50 is logged beside that
+    engine's; each sparse call may launch only on the cards that hold its
+    pieces, ceil(their pieces / 4) launches a card, and each dense call
+    one launch a card."""
     from unittest import mock
 
     import bloomsearch_tpu_torch.bloom.bank as bank_mod
@@ -1749,25 +1880,59 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
         pm.reset_launch_counts()
         pk.reset_launch_counts()
         ks.reset_launch_counts()
-        for name, query in shapes.items():
-            times = []
-            for _ in range(reps):
-                ms, rows = timed(engine, query)
-                if rowset(rows) != results[name]:
-                    raise AssertionError(f"mesh engine: {name} rows differ from the host probe")
-                times.append(ms)
-            out[f"warm_p50_ms_{name}"] = statistics.median(times)
-            log(f"mesh engine query {name}: {len(rows)} rows = host probe; warm p50 "
-                f"{out[f'warm_p50_ms_{name}']:.3f} ms over {reps}")
-        run_concurrent(engine, shapes, results, out)
-        out["launches"] = pm.launch_counts()
-        probes = pk.launch_counts()
-        scans = ks.launch_counts()
+        with SparseCallRecorder(pm, rc_mod) as sparse_calls:
+            for name, query in shapes.items():
+                times = []
+                before = pm.launch_counts()
+                for _ in range(reps):
+                    ms, rows = timed(engine, query)
+                    if rowset(rows) != results[name]:
+                        raise AssertionError(f"mesh engine: {name} rows differ from the host "
+                                             f"probe")
+                    times.append(ms)
+                after = pm.launch_counts()
+                out[f"warm_p50_ms_{name}"] = statistics.median(times)
+                one_ms, one_scans = resident["one_card"][name]
+                modes = {"sparse": after["sharded_scan_segments"]
+                         - before["sharded_scan_segments"],
+                         "dense": after["sharded_scan_all_rows"] - before["sharded_scan_all_rows"]}
+                out[f"scan_calls_{name}"] = modes
+                out[f"one_card_warm_p50_ms_{name}"] = one_ms
+                log(f"mesh engine query {name}: {len(rows)} rows = host probe; warm p50 "
+                    f"{out[f'warm_p50_ms_{name}']:.3f} ms over {reps} (the one-card engine "
+                    f"restarted from the same sidecar, phase 7: {one_ms:.3f} ms); scan calls "
+                    f"{modes} (one card: {one_scans})")
+                if (modes["sparse"] > 0, modes["dense"] > 0) != (one_scans["segments"] > 0,
+                                                                  one_scans["stream"] > 0):
+                    raise AssertionError(f"mesh engine: {name} scanned {modes}, the one-card "
+                                         f"engine {one_scans}")
+            run_concurrent(engine, shapes, results, out)
+            out["launches"] = pm.launch_counts()
+            probes = pk.launch_counts()
+            scans = ks.launch_counts()
     finally:
         engine.stop(timeout=600)
-    if scans["segments"]:
-        raise AssertionError(f"a segment scan on a mesh: {scans}")
-    # One launch a card (per launch table) for each sharded call.
+    # A sparse call launches only on the cards that hold its pieces,
+    # ceil(a card's pieces / 4) launches there.
+    for starts, counts, shard_rows, launched in sparse_calls.calls:
+        pieces, _ = pm.segment_pieces(starts, counts, shard_rows, used.size)
+        held: dict = {}
+        for i, _, _ in pieces:
+            held[used.devices[i]] = held.get(used.devices[i], 0) + 1
+        per_card = {d: launched.count(d) for d in set(launched)}
+        want = {d: -(-n // ks.MAX_SEGMENTS) for d, n in held.items()}
+        if per_card != want:
+            raise AssertionError(f"a sparse call over {list(zip(starts, counts))} launched "
+                                 f"{per_card}, want {want} ({len(pieces)} pieces)")
+    sparse_launches = sum(len(launched) for *_, launched in sparse_calls.calls)
+    if len(sparse_calls.calls) != out["launches"]["sharded_scan_segments"] \
+            or scans["segments"] != sparse_launches or not sparse_launches:
+        raise AssertionError(f"{len(sparse_calls.calls)} sparse calls recorded, "
+                             f"{out['launches']['sharded_scan_segments']} counted; "
+                             f"{sparse_launches} launches recorded, {scans['segments']} counted")
+    out["sparse_launches_per_card"] = [{str(d): launched.count(d) for d in dict.fromkeys(launched)}
+                                       for *_, launched in sparse_calls.calls[:8]]
+    # One launch a card (per launch table) for each dense sharded call.
     calls = out["launches"]
     per_probe = sum(-(-used.devices.count(d) // pk.MAX_SHARDS) for d in used.distinct_devices())
     per_scan = sum(-(-used.devices.count(d) // ks.MAX_SEGMENTS) for d in used.distinct_devices())
@@ -1782,9 +1947,48 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
     out["kernel_launches"] = {"probe": probes, "scan": scans,
                               "per_sharded_call": {"probe": per_probe, "scan": per_scan}}
     log(f"mesh engine: sharded calls on the main path {calls}; kernel launches: probe "
-        f"{probes}, scan {scans}: {per_probe} probe and {per_scan} scan launch(es) a call "
-        f"over {len(used.distinct_devices())} card(s)")
+        f"{probes}, scan {scans}: {per_probe} probe and {per_scan} dense scan launch(es) a "
+        f"call over {len(used.distinct_devices())} card(s); {len(sparse_calls.calls)} sparse "
+        f"calls made {sparse_launches} launches, only on cards that hold pieces "
+        f"(launches a card, first calls: {out['sparse_launches_per_card']})")
     return out
+
+
+class SparseCallRecorder:
+    """Records each ``sharded_scan_segments`` call the row cache makes: its
+    requested ranges, its stream's shard rows and the device of each
+    launch it made (the launches of a thread's current call)."""
+
+    def __init__(self, pm, rc_mod):
+        self.pm, self.rc = pm, rc_mod
+        self.orig_call = rc_mod.sharded_scan_segments
+        self.orig_launch = pm.byte_scan_ranges_into
+        self.calls: list = []
+        self.local = threading.local()
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        def call(mesh, rows32, seg_starts, *a, seg_chunks, **kw):
+            self.local.launched = []
+            try:
+                return self.orig_call(mesh, rows32, seg_starts, *a, seg_chunks=seg_chunks, **kw)
+            finally:
+                with self.lock:
+                    self.calls.append((list(seg_starts), list(seg_chunks), rows32[0].shape[0],
+                                       self.local.launched))
+                self.local.launched = None
+
+        def launch(out, first_word, bases, *a, **kw):
+            self.orig_launch(out, first_word, bases, *a, **kw)
+            if getattr(self.local, "launched", None) is not None:
+                self.local.launched.append(bases[0].device)
+
+        self.rc.sharded_scan_segments, self.pm.byte_scan_ranges_into = call, launch
+        return self
+
+    def __exit__(self, *exc):
+        self.rc.sharded_scan_segments = self.orig_call
+        self.pm.byte_scan_ranges_into = self.orig_launch
 
 
 # -- phase 9: the tools ---------------------------------------------------------
@@ -2038,8 +2242,10 @@ def main(argv=None) -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None, "shards": MESH_SHARDS,
             **{k: case[k] for k in ("old_ms", "mapped_ms", "copy_landing_ms", "unsharded_ms",
-                                    "unsharded_call_ms", "card_launch_ms", "cards",
-                                    "kernel_launches_per_call")},
+                                    "unsharded_call_ms", "card_launch_ms", "sparse_ms",
+                                    "dense_call_ms", "single_device_call_ms", "pieces",
+                                    "launches_per_card", "cards", "kernel_launches_per_call")
+               if k in case},
         })
     kernels.append(tools["entry"])
     for k in kernels:

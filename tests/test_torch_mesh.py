@@ -570,3 +570,244 @@ def test_rowcache_from_a_mesh_reference_scans_the_same():
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
     assert port.stats()["scan_launches"] == 1
+
+
+# -- the sparse sharded scan ---------------------------------------------------
+
+# (starts, counts, shard rows, shards) -> (pieces, range_base). Inside a
+# shard, clamped at a shard's end, straddling one and two boundaries,
+# ending at the stream's end, and a range over whole middle shards.
+PIECE_CASES = {
+    "inside_a_shard": (([100], [45], 512, 4), ([(0, 100, 64)], [0])),
+    "clamped_at_a_shard_end": (([500], [10], 512, 4), ([(0, 480, 32)], [20])),
+    "straddles_one_boundary": (([500], [30], 512, 2), ([(0, 480, 32), (1, 0, 32)], [20])),
+    "straddles_two_boundaries": (([500], [600], 512, 4),
+                                 ([(0, 480, 32), (1, 0, 512), (2, 0, 96)], [20])),
+    "ends_at_the_stream_end": (([2008], [40], 512, 4), ([(3, 448, 64)], [24])),
+    "straddles_into_the_stream_end": (([1500], [548], 512, 4),
+                                      ([(2, 448, 64), (3, 0, 512)], [28])),
+    "over_whole_middle_shards": (([100], [4000], 512, 10),
+                                 ([(0, 96, 416)] + [(i, 0, 512) for i in range(1, 8)]
+                                  + [(8, 0, 32)], [4])),
+    "unaligned_boundary_start": (([511], [2], 512, 8), ([(0, 480, 32), (1, 0, 32)], [31])),
+    "several_ranges": (([0, 500, 1030, 1530], [32, 30, 40, 518], 512, 4),
+                       ([(0, 0, 32), (0, 480, 32), (1, 0, 32), (2, 6, 64), (2, 480, 32),
+                         (3, 0, 512)], [0, 52, 96, 186])),
+}
+
+
+def output_map(pieces, shard_rows: int) -> np.ndarray:
+    """The logical stream chunk behind every logical output chunk."""
+    return np.concatenate([np.arange(i * shard_rows + r, i * shard_rows + r + n)
+                           for i, r, n in pieces])
+
+
+def assert_pieces_cover(starts, counts, shard_rows, n_shards, pieces, range_base):
+    """Every piece lies in its shard, starts on an output word and reads a
+    multiple of 32 rows; each range's requested chunks are one run of the
+    output from its base."""
+    for i, r, n in pieces:
+        assert 0 <= i < n_shards and n > 0 and n % 32 == 0 and 0 <= r and r + n <= shard_rows
+    where = output_map(pieces, shard_rows)
+    for s, n, b in zip(starts, counts, range_base):
+        np.testing.assert_array_equal(where[b : b + n], np.arange(s, s + n))
+    # Nothing is read that rounding to 32 a piece does not ask for.
+    assert len(where) < sum(counts) + 32 * len(pieces)
+
+
+@pytest.mark.parametrize("case", sorted(PIECE_CASES))
+def test_segment_pieces_cut_ranges_at_shard_boundaries(case):
+    args, want = PIECE_CASES[case]
+    got = pm.segment_pieces(*args)
+    assert got == want
+    assert_pieces_cover(*args, *got)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 8, 10, 16])
+def test_segment_pieces_keep_random_ranges_whole(n_shards):
+    """Random sorted ranges of 1 to 1.5 shards, some at the stream's ends,
+    over shards of 64 to 512 rows."""
+    rng = np.random.default_rng(n_shards)
+    for shard_rows in (64, 96, 512):
+        total = shard_rows * n_shards
+        for _ in range(50):
+            counts = rng.integers(1, shard_rows * 3 // 2, size=4)
+            starts = rng.integers(0, total - counts + 1)
+            starts[0], starts[-1] = 0, total - counts[-1]
+            order = np.argsort(starts)
+            starts, counts = starts[order].tolist(), counts[order].tolist()
+            pieces, base = pm.segment_pieces(starts, counts, shard_rows, n_shards)
+            assert_pieces_cover(starts, counts, shard_rows, n_shards, pieces, base)
+
+
+@pytest.mark.parametrize("starts, counts, rows, shards", [
+    ([0], [0], 512, 4),  # an empty range
+    ([2040], [16], 512, 4),  # past the stream's end
+    ([-1], [4], 512, 4),
+    ([0], [4], 48, 4),  # shards off the 32-chunk tile
+])
+def test_segment_pieces_refuse_what_no_launch_takes(starts, counts, rows, shards):
+    with pytest.raises(ValueError):
+        pm.segment_pieces(starts, counts, rows, shards)
+
+
+# (devices of the shards, pieces) -> the launches, as (device, [(first
+# word, piece indices)]): one card's 7 pieces (two launches), distinct
+# cards (only those with pieces), and devices that interleave.
+LAUNCH_CASES = [
+    (["cuda:0"] * 4, PIECE_CASES["several_ranges"][1][0] + [(3, 0, 32)],
+     [("cuda:0", [(0, [0, 1, 2, 3]), (5, [4, 5, 6])])]),
+    ([f"cuda:{i}" for i in range(4)], PIECE_CASES["straddles_two_boundaries"][1][0],
+     [("cuda:0", [(0, [0])]), ("cuda:1", [(1, [1])]), ("cuda:2", [(17, [2])])]),
+    (["cuda:0", "cuda:0", "cuda:1", "cuda:1"], PIECE_CASES["several_ranges"][1][0],
+     [("cuda:0", [(0, [0, 1, 2])]), ("cuda:1", [(3, [3, 4, 5])])]),
+    (["cuda:1", "cuda:0", "cuda:1", "cuda:0"], PIECE_CASES["several_ranges"][1][0],
+     [("cuda:1", [(0, [0, 1]), (3, [3, 4])]), ("cuda:0", [(2, [2]), (6, [5])])]),
+    (["cpu"] * 10, PIECE_CASES["over_whole_middle_shards"][1][0],
+     [("cpu", [(0, [0, 1, 2, 3]), (61, [4, 5, 6, 7]), (125, [8])])]),
+]
+
+
+@pytest.mark.parametrize("devices, pieces, want", LAUNCH_CASES)
+def test_piece_launches_group_pieces_by_card(devices, pieces, want):
+    got = pm.piece_launches(pieces, [torch.device(d) for d in devices], ks.MAX_SEGMENTS)
+    assert [(str(d), launches) for d, launches in got] == want
+    for dev, launches in got:
+        mine = sum(devices[i] == str(dev) for i, _, _ in pieces)
+        assert len(launches) >= -(-mine // ks.MAX_SEGMENTS)
+        assert all(len(idx) <= ks.MAX_SEGMENTS for _, idx in launches)
+    # The launches' words tile the output in piece order.
+    words = sorted((w, idx) for _, launches in got for w, idx in launches)
+    at = 0
+    for w, idx in words:
+        assert w == at
+        at += sum(pieces[i][2] for i in idx) // 32
+    assert at == sum(n for _, _, n in pieces) // 32
+
+
+def segment_ranges(n: int, shard_rows: int = 512) -> tuple[list[int], list[int]]:
+    """Up to 4 sorted ranges on an n-shard stream: one straddling the first
+    boundary (starting off the word), one inside a shard clamped at its
+    end, one over two or three shards, and one ending at the stream's
+    end."""
+    G = n * shard_rows
+    ranges = [(shard_rows - 37, 70)]
+    if n >= 4:
+        ranges.append((2 * shard_rows - 20, 19))  # inside shard 1, past its last word
+        # Over shards 2 and 3, or 2 to 4 (the whole of 3) where there are 8 or more.
+        ranges.append((2 * shard_rows + 3, (2 if n >= 8 else 1) * shard_rows + 100))
+    ranges.append((G - 45, 45))
+    ranges = sorted(set(ranges))[:4]
+    return [s for s, _ in ranges], [c for _, c in ranges]
+
+
+def bits_at(words: np.ndarray, firsts, counts) -> list[np.ndarray]:
+    """Each range's bits bool[rows, count] from its first output chunk."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), axis=-1, bitorder="little")
+    return [bits[:, f : f + c].astype(bool) for f, c in zip(firsts, counts)]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 10])
+def test_sharded_segments_match_unsharded_segments_and_reference(n, monkeypatch):
+    """On n CPU shards: every requested chunk of ``sharded_scan_segments``
+    equals ``byte_scan_segments`` on the unsharded stream, the dense scan
+    and the JAX package's ``scan_segments`` (XLA and Pallas interpret),
+    with matches at bytes 479 and 480 beside every shard boundary; one
+    launch covers up to 4 pieces, and only the pieces are read."""
+    from test_torch_scan import SCAN_SEGMENTS
+
+    tmesh = pm.default_mesh(n, "cpu")
+    G = 512 * n
+    needles = [b"\xc3\xa9t\xe9", b"needle", bytes(range(0x61, 0x61 + 31)), b"\xff" * 32]
+    chunks = planted_chunks(G, needles, 30 + n)
+    padded = np.zeros((8, ks.MAX_SCAN_WINDOW), np.int32)  # the JAX kernel's 8 rows
+    lens = np.zeros(8, np.int32)
+    for r, nd in enumerate(needles):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    rows32 = chunks.view(np.int32)
+    trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
+    starts, counts = segment_ranges(n)
+    launched = []
+    orig = pm.byte_scan_ranges_into
+    monkeypatch.setattr(pm, "byte_scan_ranges_into", lambda out, first, bases, st, ct, *a, **kw: (
+        launched.append((first, [b.data_ptr() for b in bases], list(st), list(ct)))
+        or orig(out, first, bases, st, ct, *a, **kw)))
+    got, base = pm.sharded_scan_segments(tmesh, trows, starts, padded, lens, n_real=4,
+                                         max_words=9, seg_chunks=counts)
+    pieces, want_base = pm.segment_pieces(starts, counts, 512, n)
+    assert base == want_base and got.shape == (4, sum(p[2] for p in pieces) // 32)
+    # One launch a run of up to 4 pieces, reading exactly the pieces.
+    assert len(launched) == -(-len(pieces) // ks.MAX_SEGMENTS)
+    read = [(ptr, s, c) for _, ptrs, st, ct in launched for ptr, s, c in zip(ptrs, st, ct)]
+    assert read == [(trows[i].data_ptr(), r, c) for i, r, c in pieces]
+    flat = torch.from_numpy(rows32.copy())
+    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=4, max_words=9,
+                                   seg_chunks=counts).numpy()
+    read_at, rounded = ks.segment_layout(starts, counts, G)
+    single_base = [int(o) + s - r for o, s, r in zip(np.cumsum([0] + rounded[:-1]), starts,
+                                                     read_at)]
+    dense = ks.byte_scan_stream(flat, padded, lens, n_real=4, max_words=9).numpy()
+    seg = max(512, 1 << (max(counts) - 1).bit_length())
+    jax_starts = np.array(starts, np.int32)
+    jax_base = [p * seg + s - min(s, G - seg) for p, s in enumerate(starts)]
+    mine = bits_at(words(got), base, counts)
+    for want in (bits_at(single.view(np.uint32), single_base, counts),
+                 bits_at(dense.view(np.uint32), starts, counts)):
+        for a, b in zip(mine, want):
+            np.testing.assert_array_equal(a, b)
+    for use_pallas in (False, True):
+        ref = np.asarray(SCAN_SEGMENTS(
+            jnp.asarray(rows32), jnp.asarray(jax_starts), jnp.asarray(padded), jnp.asarray(lens),
+            n_real=4, max_words=9, seg_chunks=seg, use_pallas=use_pallas, interpret=use_pallas))
+        for a, b in zip(mine, bits_at(ref, jax_base, counts)):
+            np.testing.assert_array_equal(a, b)
+    # The planted hits beside every boundary inside a requested range.
+    logical = np.zeros((4, G), bool)
+    for s, c, m in zip(starts, counts, mine):
+        logical[:, s : s + c] = m
+    seen = 0
+    for r in range(4):
+        for boundary in range(512, G, 512):
+            for g in (boundary - 1 - r, boundary + r):
+                if any(s <= g < s + c for s, c in zip(starts, counts)):
+                    assert logical[r, g], (r, g)
+                    seen += 1
+    assert seen >= 4
+
+
+def test_sharded_segments_count_only_cuda_launches():
+    mesh = pm.default_mesh(4, "cpu")
+    pm.reset_launch_counts()
+    ks.reset_launch_counts()
+    stream = pm.sharded_zeros_rows(mesh, 2048)
+    needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
+    out, base = pm.sharded_scan_segments(mesh, stream, [500], needle, np.ones(1, np.int32),
+                                         n_real=1, max_words=2, seg_chunks=[30])
+    assert base == [20] and out.shape == (1, 2) and not out.is_pinned()
+    assert pm.launch_counts()["sharded_scan_segments"] == 0
+    assert ks.launch_counts() == {"stream": 0, "segments": 0}
+
+
+def test_ranges_into_a_wide_output_keep_other_words():
+    """``byte_scan_ranges_into`` on CPU bases: each range's words land one
+    after another from the first word; the words around them keep what
+    they held; ranges off the tile or outside their base are refused."""
+    rng = np.random.default_rng(4)
+    bases = [torch.from_numpy(rng.integers(0, 256, size=(128, ks.CHUNK_BYTES), dtype=np.uint8)
+                              .view(np.int32).copy()) for _ in range(2)]
+    padded = np.zeros((2, ks.MAX_SCAN_WINDOW), np.int32)
+    padded[0, :1], padded[1, :2] = [7], [7, 9]
+    lens = np.array([1, 2], np.int32)
+    out = torch.full((2, 9), 0x5A5A5A5A, dtype=torch.int32)
+    ks.byte_scan_ranges_into(out, 2, [bases[1], bases[0], bases[1]], [32, 0, 96], [64, 32, 32],
+                             padded, lens, n_real=2, max_words=2)
+    want = torch.cat([ks.byte_scan_stream(b[s : s + c], padded, lens, n_real=2, max_words=2)
+                      for b, s, c in ((bases[1], 32, 64), (bases[0], 0, 32), (bases[1], 96, 32))],
+                     dim=1)
+    assert torch.equal(out[:, 2:6], want)
+    assert (out[:, :2] == 0x5A5A5A5A).all() and (out[:, 6:] == 0x5A5A5A5A).all()
+    for st, ct in (([0], [48]), ([112], [32]), ([0] * 5, [32] * 5)):
+        with pytest.raises(ValueError):
+            ks.byte_scan_ranges_into(out, 0, [bases[0]] * len(st), st, ct, padded, lens,
+                                     n_real=2, max_words=2)

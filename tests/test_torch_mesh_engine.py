@@ -93,6 +93,7 @@ def test_mesh_query_matches_reference(engines, name):
 
 def test_mesh_engine_is_sharded_like_the_reference(engines):
     engines["jax"].query_sync(QUERIES["and_of_or"](bs), timeout=TIMEOUT)
+    engines["port"].query_sync(QUERIES["and_of_or"](bt), timeout=TIMEOUT)
     assert_sharded(engines["port"], engines["jax"])
     stats = engines["port"].stats()["device"]
     assert stats["mesh_devices"] == N and stats["probe_launches"] > 0
@@ -178,15 +179,40 @@ def serving(tmp_path_factory):
     port.stop(timeout=TIMEOUT)
 
 
+def single_device_rule(ranges, cap: int) -> str:
+    """The mode the JAX single-device row cache launches for a batch's
+    requested ranges on a stream of ``cap`` chunks (its ``sparse`` rule in
+    ``DeviceRowCache._launch_bucket_scan``): pow2 segments of at least 512
+    chunks, a pow2 count of at most 4, a quarter of the stream at most."""
+    def pow2(n):
+        return 1 << (max(n, 1) - 1).bit_length()
+
+    seg = max(pow2(max((n for _, n in ranges), default=1)), 512)
+    n_segs = pow2(len(ranges)) if ranges else 0
+    sparse = 0 < n_segs <= 4 and seg <= cap and n_segs * seg * 4 <= cap
+    return "sharded_scan_segments" if sparse else "sharded_scan_all_rows"
+
+
 @pytest.mark.parametrize("name", sorted(QUERIES))
 def test_mesh_serving_query_matches_reference(serving, monkeypatch, name):
-    modes = []
-    for fn in ("byte_scan_segments", "byte_scan_stream", "sharded_scan_all_rows"):
+    cache = serving["port"]._row_cache
+    modes, batches = [], []
+    for fn in ("byte_scan_segments", "byte_scan_stream", "sharded_scan_all_rows",
+               "sharded_scan_segments"):
         orig = getattr(rc, fn)
         monkeypatch.setattr(
             rc, fn, lambda *a, _o=orig, _f=fn, **k: modes.append(_f) or _o(*a, **k)
         )
-    serving["port"]._row_cache.needle_cache_enabled = False
+    orig_launch = cache._launch_bucket_scan
+
+    def launch(bucket, matrix, version, batch):
+        ranges = sorted({seg for r in batch for seg in r.segments if seg is not None and seg[1]})
+        before = len(modes)
+        orig_launch(bucket, matrix, version, batch)
+        batches.append((modes[before:], single_device_rule(ranges, pm.logical_size(matrix, 0))))
+
+    monkeypatch.setattr(cache, "_launch_bucket_scan", launch)
+    cache.needle_cache_enabled = False
     want = None
     for key in ("jax", "port"):
         pkg = bs if key == "jax" else bt
@@ -194,8 +220,29 @@ def test_mesh_serving_query_matches_reference(serving, monkeypatch, name):
             got = multiset(serving[key].query_sync(QUERIES[name](pkg), timeout=TIMEOUT))
             want = got if want is None else want
             assert got == want, key
-    # Every scan on a mesh is the dense scan over all shards.
-    assert set(modes) <= {"sharded_scan_all_rows"}
+    # Each launch is the mode the single-device rule picks for its batch.
+    assert all(launched and set(launched) == {rule} for launched, rule in batches)
+
+
+def test_mesh_serving_scans_sparse_where_one_device_would(serving, monkeypatch):
+    """A needle under a narrow min/max prefilter asks for one block: the
+    mesh scans just its range (one ``sharded_scan_segments`` call, as the
+    single-device rule says), and the rows equal the JAX mesh engine's."""
+    cache = serving["port"]._row_cache
+    calls = []
+    for fn in ("sharded_scan_all_rows", "sharded_scan_segments"):
+        orig = getattr(rc, fn)
+        monkeypatch.setattr(rc, fn, lambda *a, _o=orig, _f=fn, **k: calls.append(_f) or _o(*a, **k))
+    cache.needle_cache_enabled = False
+    rows = {}
+    for key, pkg in (("jax", bs), ("port", bt)):
+        query = (pkg.new_query()
+                 .match_prefilter(pkg.and_(pkg.partition(pkg.partition_equals("t1")),
+                                           pkg.min_max("ts", pkg.numeric_between(10_100, 10_110))))
+                 .field("level").build())
+        rows[key] = [multiset(serving[key].query_sync(query, timeout=TIMEOUT)) for _ in range(2)]
+    assert rows["port"] == rows["jax"] and rows["port"][0]
+    assert calls == ["sharded_scan_segments"] * 2
 
 
 def test_mesh_serving_stream_is_sharded(serving):
@@ -211,7 +258,8 @@ def test_mesh_serving_stream_is_sharded(serving):
     assert stats["pinned_blocks"] == n_blocks
     assert cache._chunk_unit == 512 * N and cache._bucket.cap % (512 * N) == 0
     assert [s.shape[0] for s in cache._bucket.matrix] == [cache._bucket.cap // N] * N
-    assert port.stats()["warmup"]["scan_aot_programs"] == 1  # dense only: no segment mode
+    # A dense sharded call and a sparse one (a block that size scans sparse).
+    assert port.stats()["warmup"]["scan_aot_programs"] == 2
 
 
 def test_single_device_sidecar_loads_into_a_sharded_cache(tmp_path):

@@ -487,6 +487,84 @@ class TestSparseSegmentScan:
         assert seen == ["_scan_segments"] * 4 + ["_scan"] * 2
         ks.reset_launch_counts()
 
+    def test_a_mesh_chooses_sparse_where_one_device_does(self, monkeypatch):
+        """A 4-shard CPU mesh holding the JAX single-device cache's state
+        (``rowcache_from_reference``): request by request the port scans
+        sparse exactly where the JAX cache does (a spy on its ``_scan`` and
+        ``_scan_segments``), each sparse call reads just the requested
+        ranges' pieces (``segment_pieces``), ranges across a shard boundary
+        included, in ceil(pieces / 4) launches, and the candidate matrices
+        equal the JAX cache's."""
+        from bloomsearch_tpu_torch.kernels import scan as ks
+        from bloomsearch_tpu_torch.parallel import mesh as pm
+
+        ref = rc_ref.DeviceRowCache(1 << 30, mesh_devices=1)
+        ref.needle_cache_enabled = False
+        for b in range(40):
+            data, offs, lens = block_of(
+                [{"m": f"blk{b} tok{b}_{i} " + "x" * 90} for i in range(300 + 40 * (b % 7))])
+            ref.pin((f"f{b}".encode(), 0), data, offs, lens)
+        port = rowcache_from_reference(ref, "cpu", mesh=pm.default_mesh(4, "cpu"))
+        port.needle_cache_enabled = False
+        cap = port._bucket.cap
+        assert cap == ref._bucket.cap and len(port._bucket.matrix) == 4
+        shard_rows = cap // 4
+        keys = list(ref._blocks)
+        segs = [ref._bucket.segments[k] for k in keys]
+        straddling = [b for b, (s, n) in enumerate(segs)
+                      if s // shard_rows != (s + n - 1) // shard_rows]
+        assert straddling, "no block crosses a shard boundary: change the blocks"
+        modes = {"ref": [], "port": []}
+        for name in ("_scan", "_scan_segments"):
+            orig = getattr(ref, name)
+            setattr(ref, name,
+                    lambda *a, _o=orig, _n=name, **k: modes["ref"].append(_n) or _o(*a, **k))
+        for name, mode in (("sharded_scan_segments", "_scan_segments"),
+                           ("sharded_scan_all_rows", "_scan")):
+            orig = getattr(rc, name)
+            monkeypatch.setattr(rc, name, lambda *a, _o=orig, _m=mode, **k: (
+                modes["port"].append(_m) or _o(*a, **k)))
+        launched = []
+        orig_into = pm.byte_scan_ranges_into
+        monkeypatch.setattr(pm, "byte_scan_ranges_into", lambda out, w, bases, st, ct, *a, **k: (
+            launched.append([(b.data_ptr(), int(s), int(c)) for b, s, c in zip(bases, st, ct)])
+            or orig_into(out, w, bases, st, ct, *a, **k)))
+        orig_shards = pm.byte_scan_shards_into
+        monkeypatch.setattr(pm, "byte_scan_shards_into", lambda out, w, shards, *a, **k: (
+            launched.append([(m.data_ptr(), 0, m.shape[0]) for m in shards])
+            or orig_shards(out, w, shards, *a, **k)))
+        monkeypatch.setattr(rc, "byte_scan_stream", None)  # no single-device launch on a mesh
+        monkeypatch.setattr(rc, "byte_scan_segments", None)
+        needles = [b"tok3_11 ", b"blk", b"absent", b"x"]
+        seen, sparse_straddling = [], 0
+        first = straddling[0]
+        for picked in ((first,), (3, first), (0, 17, 39), (1, 2, 5, 6), (1, 2, 5, 6, 8),
+                       tuple(range(40))):
+            modes["ref"].clear()
+            modes["port"].clear()
+            launched.clear()
+            want = ref.scan_many([ref._blocks[keys[b]] for b in picked], needles)
+            got = port.scan_many([port._blocks[keys[b]] for b in picked], needles)
+            assert list(got) == list(want)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key], err_msg=repr((picked, key)))
+            assert modes["port"] == modes["ref"], picked
+            seen += modes["port"]
+            if modes["port"] == ["_scan_segments"]:
+                ranges = sorted(segs[b] for b in picked)
+                pieces, _ = pm.segment_pieces([s for s, _ in ranges], [n for _, n in ranges],
+                                              shard_rows, 4)
+                reads = [r for launch in launched for r in launch]
+                assert reads == [(port._bucket.matrix[i].data_ptr(), r, n)
+                                 for i, r, n in pieces], picked
+                assert len(launched) == -(-len(pieces) // ks.MAX_SEGMENTS)
+                sparse_straddling += any(b in straddling for b in picked)
+            else:
+                assert launched == [[(m.data_ptr(), 0, shard_rows) for m in port._bucket.matrix]]
+        # One to four blocks scan sparse; five and all forty dense.
+        assert seen == ["_scan_segments"] * 4 + ["_scan"] * 2
+        assert sparse_straddling >= 2
+
 
 class TestNeedleBitmapCache:
     def test_repeat_needle_skips_launch_until_matrix_changes(self):

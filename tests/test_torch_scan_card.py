@@ -1,0 +1,263 @@
+"""The stream byte scan (K2) on the card in all its launches, against its
+plain version and a numpy bytes oracle. No JAX: this file runs where the
+JAX package cannot.
+
+Dense mode, segment mode, ``byte_scan_ranges_into`` (ranges of one card's
+shards into a wider output) and the sparse sharded scan
+``sharded_scan_segments`` (K3-e) on 4 and 10 shards of one card and on one
+shard a card where two or more cards are visible. Every case is exact: the
+words equal the plain version's, and each needle's bits equal a byte
+search of each chunk's 480 payload starts. Matches are planted at bytes
+479 (a hit) and 480 (not one: the next chunk's payload) beside every
+shard boundary. Every test is marked ``cuda`` and skips without a card. On
+a machine with one, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_scan_card.py
+
+(``--noconftest``: the suite's conftest imports JAX to pin its platform.)
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from bloomsearch_tpu_torch.kernels import scan as ks
+from bloomsearch_tpu_torch.parallel import mesh as pm
+
+pytestmark = pytest.mark.cuda
+
+NEEDLES = [b"\xc3\xa9t\xe9", b"bound", b"x", bytes(range(0x61, 0x61 + 32)), b"ab\xffcd\x80ef"]
+MESHES = ["4 shards on one card", "10 shards on one card", "distinct cards"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the scan kernel has no CPU form")
+    return torch.device("cuda", 0)
+
+
+def mesh_of(kind: str, dev) -> pm.Mesh:
+    if kind == "distinct cards":
+        n = min(torch.cuda.device_count(), 4)
+        if n < 2:
+            pytest.skip("needs two or more cards")
+        return pm.Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    return pm.Mesh((dev,) * (4 if kind.startswith("4") else 10))
+
+
+def planted(G: int, shard_rows: int, seed: int) -> np.ndarray:
+    """Random chunks (bytes >= 0x80 included) with needle r planted at
+    bytes 479 and 480 of chunks on each side of every shard boundary and
+    at every alignment mod 4 somewhere."""
+    rng = np.random.default_rng(seed)
+    chunks = rng.integers(0, 256, size=(G, ks.CHUNK_BYTES), dtype=np.uint8)
+    for r, nd in enumerate(NEEDLES):
+        arr = np.frombuffer(nd, np.uint8)
+        for boundary in range(shard_rows, G, shard_rows):
+            for g, start in ((boundary - 1 - r, 479), (boundary + r, 479),
+                             (boundary - 5 - r, 480), (boundary + 5 + r, 480)):
+                chunks[g, start : start + len(arr)] = arr
+        for a in range(4):
+            chunks[int(rng.integers(0, G)), 4 * int(rng.integers(0, 100)) + a :][: len(arr)] = arr
+    return chunks
+
+
+def packed(n_real: int, n_rows: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``n_real`` needles as (int32[rows, 32], int32[rows]),
+    padded with length-0 rows to ``n_rows``."""
+    n_rows = n_rows or n_real
+    padded = np.zeros((n_rows, ks.MAX_SCAN_WINDOW), np.int32)
+    lens = np.zeros(n_rows, np.int32)
+    for r, nd in enumerate(NEEDLES[:n_real]):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    return padded, lens
+
+
+def oracle(chunks: np.ndarray, n_real: int) -> np.ndarray:
+    """bool[n_real, G]: needle n at some start < 480 of chunk g."""
+    return np.array([[bytes(c[: 479 + len(nd)]).find(nd) >= 0 for c in chunks]
+                     for nd in NEEDLES[:n_real]])
+
+
+def bits(words: torch.Tensor) -> np.ndarray:
+    w = np.ascontiguousarray(words.cpu().numpy()).view(np.uint8)
+    return np.unpackbits(w, axis=-1, bitorder="little").astype(bool)
+
+
+def test_dense_mode_matches_plain_and_oracle(dev):
+    G = 2048
+    chunks = planted(G, 512, 1)
+    rows32 = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
+    want = oracle(chunks, len(NEEDLES))
+    ks.reset_launch_counts()
+    for n_real in (1, 2, len(NEEDLES)):
+        padded, lens = packed(n_real, 8)
+        got = ks.byte_scan_stream(rows32, padded, lens, n_real=8, max_words=9)
+        plain = ks.byte_scan_plain(rows32, padded, lens, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), n_real
+        np.testing.assert_array_equal(bits(got)[:n_real], want[:n_real])
+        assert bits(got)[n_real:].all()  # length-0 rows match every chunk
+    assert ks.launch_counts() == {"stream": 3, "segments": 0}
+
+
+def test_segment_mode_matches_plain_and_oracle(dev):
+    """Ranges of unequal, unaligned lengths, one clamped at the stream's
+    end and one ending there."""
+    G = 2048
+    chunks = planted(G, 512, 2)
+    rows32 = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
+    n_real = len(NEEDLES)
+    padded, lens = packed(n_real)
+    want = oracle(chunks, n_real)
+    for starts, counts in (([5, 700, 1203, 2030], [45, 100, 33, 18]),
+                           ([0, 2048 - 96], [1, 96]), ([321], [31])):
+        ks.reset_launch_counts()
+        got = ks.byte_scan_segments(rows32, starts, padded, lens, n_real=n_real, max_words=9,
+                                    seg_chunks=counts)
+        plain = ks.byte_scan_plain(rows32, padded, lens, n_real, starts, counts)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+        assert ks.launch_counts() == {"stream": 0, "segments": 1}
+        read, rounded = ks.segment_layout(starts, counts, G)
+        at, b = 0, bits(got)
+        for s, n, r, rn in zip(starts, counts, read, rounded):
+            np.testing.assert_array_equal(b[:, at + s - r : at + s - r + n], want[:, s : s + n])
+            at += rn
+
+
+@pytest.mark.parametrize("host", [False, True])
+def test_ranges_into_a_wide_output_keep_other_words(dev, host):
+    """``byte_scan_ranges_into`` over ranges of three shards of one card,
+    into a device or page-locked output wider than its words: the words
+    land from the first word on, the others keep what they held."""
+    shard_rows = 512
+    chunks = planted(3 * shard_rows, shard_rows, 3)
+    shards = [torch.from_numpy(chunks[i * shard_rows : (i + 1) * shard_rows].view(np.int32)
+                               .copy()).to(dev) for i in range(3)]
+    padded, lens = packed(3)
+    starts, counts = [480, 0, 32, 256], [32, 64, 96, 256]
+    bases = [shards[0], shards[1], shards[2], shards[2]]
+    out = torch.full((3, 20), 0x5A5A5A5A, dtype=torch.int32)
+    out = out.pin_memory() if host else out.to(dev)
+    ks.reset_launch_counts()
+    ks.byte_scan_ranges_into(out, 3, bases, starts, counts, padded, lens, n_real=3, max_words=9)
+    torch.cuda.synchronize()
+    assert ks.launch_counts() == {"stream": 0, "segments": 1}
+    out = out.cpu()
+    want = torch.cat([ks.byte_scan_plain(b[s : s + c], padded, lens, 3).cpu()
+                      for b, s, c in zip(bases, starts, counts)], dim=1)
+    assert torch.equal(out[:, 3:17], want)
+    assert (out[:, :3] == 0x5A5A5A5A).all() and (out[:, 17:] == 0x5A5A5A5A).all()
+    logical = [(0, 480, 32), (1, 0, 64), (2, 32, 96), (2, 256, 256)]
+    oracle_bits = np.concatenate(
+        [oracle(chunks[i * shard_rows + s : i * shard_rows + s + c], 3) for i, s, c in logical],
+        axis=1)
+    np.testing.assert_array_equal(bits(out[:, 3:17]), oracle_bits)
+
+
+def test_pageable_output_is_refused(dev):
+    """A host output the card cannot address raises before a launch."""
+    stream = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    padded, lens = packed(1)
+    ks.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ks.byte_scan_ranges_into(torch.zeros((1, 2), dtype=torch.int32), 0, [stream], [0], [64],
+                                 padded, lens, n_real=1, max_words=9)
+    assert ks.launch_counts() == {"stream": 0, "segments": 0}
+
+
+def sharded_ranges(n: int, shard_rows: int) -> tuple[list[int], list[int]]:
+    """Sorted ranges: across the first boundary (off the word), inside
+    shard 1 clamped at its end and over two or more shards (where there
+    are 4 shards or more), and one ending at the stream's end."""
+    G = n * shard_rows
+    if n < 4:
+        return [shard_rows - 37, G - 45], [70, 45]
+    span = (2 if n >= 8 else 1) * shard_rows + 100
+    ranges = [(shard_rows - 37, 70), (2 * shard_rows - 20, 19), (2 * shard_rows + 3, span),
+              (G - 45, 45)]
+    return [s for s, _ in ranges], [c for _, c in ranges]
+
+
+@pytest.mark.parametrize("kind", MESHES)
+def test_sharded_segments_match_the_unsharded_launch(dev, kind):
+    """``sharded_scan_segments`` equals, at every requested chunk, the
+    unsharded segment launch, the plain version and the oracle; it makes
+    ceil(pieces / 4) launches on each card that holds a piece and none on
+    the others, and one call in the mesh counter."""
+    mesh = mesh_of(kind, dev)
+    shard_rows = 1024 if mesh.size <= 4 else 512
+    G = mesh.size * shard_rows
+    chunks = planted(G, shard_rows, mesh.size)
+    stream = pm.sharded_update_rows(
+        mesh, pm.sharded_zeros_rows(mesh, G, device=dev), chunks.view(np.int32), 0)
+    n_real = len(NEEDLES)
+    padded, lens = packed(n_real)
+    starts, counts = sharded_ranges(mesh.size, shard_rows)
+    pieces, want_base = pm.segment_pieces(starts, counts, shard_rows, mesh.size)
+    plan = pm.piece_launches(pieces, mesh.devices, ks.MAX_SEGMENTS)
+    ks.reset_launch_counts()
+    pm.reset_launch_counts()
+    got, base = pm.sharded_scan_segments(mesh, stream, starts, padded, lens, n_real=n_real,
+                                         max_words=9, seg_chunks=counts)
+    assert ks.launch_counts() == {"stream": 0, "segments": sum(len(ls) for _, ls in plan)}
+    assert pm.launch_counts()["sharded_scan_segments"] == 1
+    for device, launches in plan:
+        mine = sum(mesh.devices[i] == device for i, _, _ in pieces)
+        assert len(launches) == -(-mine // ks.MAX_SEGMENTS), device
+    held = {mesh.devices[i] for i, _, _ in pieces}
+    assert {d for d, _ in plan} == held
+    assert base == want_base and got.is_pinned()
+    assert got.shape == (n_real, sum(n for _, _, n in pieces) // 32)
+    flat = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
+    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=n_real, max_words=9,
+                                   seg_chunks=counts)
+    read, rounded = ks.segment_layout(starts, counts, G)
+    single_base = np.cumsum([0] + rounded[:-1]) + np.array(starts) - np.array(read)
+    by_pieces = torch.cat([ks.byte_scan_plain(stream[i][r : r + n], padded, lens, n_real).cpu()
+                           for i, r, n in pieces], dim=1)
+    assert torch.equal(got, by_pieces)
+    want = oracle(chunks, n_real)
+    mine, theirs = bits(got), bits(single)
+    for s, n, b, sb in zip(starts, counts, base, single_base):
+        np.testing.assert_array_equal(mine[:, b : b + n], theirs[:, sb : sb + n])
+        np.testing.assert_array_equal(mine[:, b : b + n], want[:, s : s + n])
+    # The planted hits beside the boundaries inside the ranges.
+    hit = 0
+    for r in range(n_real):
+        for boundary in range(shard_rows, G, shard_rows):
+            g = boundary - 1 - r
+            for s, n, b in zip(starts, counts, base):
+                if s <= g < s + n:
+                    assert mine[r, b + g - s], (r, g)
+                    hit += 1
+    assert hit > 0
+
+
+def test_a_fresh_thread_launches_the_sparse_sharded_scan(dev):
+    """The engine calls the wrapper from its worker threads: a thread with
+    no CUDA context yet gets the same words as the main thread."""
+    mesh = mesh_of("4 shards on one card", dev)
+    G = 4 * 512
+    chunks = planted(G, 512, 9)
+    stream = pm.sharded_update_rows(
+        mesh, pm.sharded_zeros_rows(mesh, G, device=dev), chunks.view(np.int32), 0)
+    padded, lens = packed(3)
+    starts, counts = sharded_ranges(4, 512)
+
+    def run():
+        return pm.sharded_scan_segments(mesh, stream, starts, padded, lens, n_real=3,
+                                        max_words=9, seg_chunks=counts)
+
+    want = run()
+    got: list = []
+    worker = threading.Thread(target=lambda: got.append(run()))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and len(got) == 1
+    assert torch.equal(got[0][0], want[0]) and got[0][1] == want[1]

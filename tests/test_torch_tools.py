@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from bloomsearch_tpu.bloom.pallas_kernels import ROW_GROUP  # noqa: E402
 from bloomsearch_tpu_torch.kernels import probe as tk  # noqa: E402
+from bloomsearch_tpu_torch.kernels import scan as ks  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_compile_cache, gen_bench_datasets, timing  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_mesh_join, exp_probe_variants  # noqa: E402
 from bloomsearch_tpu_torch.tools import exp_kernel_floor as floor  # noqa: E402
@@ -237,17 +238,38 @@ def test_probe_variants_rewrite_one_define_each():
 
 @pytest.mark.parametrize("label", ["K3-a pack, T = 4", "K3-b reduce, T = 1",
                                    "K3-c clauses, T = 4, 2 clauses, 1 member",
-                                   "K3-d scan, n_real = 1", "K3-d scan, n_real = 8"])
+                                   "K3-d scan, n_real = 1", "K3-d scan, n_real = 8",
+                                   "K3-e segments, 3 ranges, n_real = 3"])
 def test_mesh_join_cases_agree_on_a_cpu_mesh(label):
     """The mesh-join tool's cases on a 4-shard CPU mesh: the package's
     wrapper, one launch a card into a wider output (``into``) and the
     per-shard form's single-device calls joined give the same words; the
-    tool itself has no CPU form."""
+    sparse case's call, the dense sharded call and the single-device
+    segment call agree at every requested chunk, planted hits included;
+    the tool itself has no CPU form."""
     from bloomsearch_tpu_torch.parallel import mesh as pm
 
     mesh = pm.default_mesh(4, "cpu")
     bank, stream = exp_mesh_join.mesh_state(mesh.devices, 3, 60, 128, 512)
     rng = np.random.default_rng(3)
+    if label.startswith("K3-e"):
+        needles = np.zeros((3, 32), np.int32)
+        needles[0, :1], needles[1, :2], needles[2, :4] = [0x61], [0x61, 0x62], [1, 2, 3, 4]
+        full = torch.cat(list(stream))
+        case = exp_mesh_join.sparse_case(mesh, stream, full, rng,
+                                         (needles, np.array([1, 2, 4], np.int32)))
+        assert case.label == label
+        pieces, _ = pm.segment_pieces(case.starts, case.counts, 512, 4)
+        assert [i for i, _, _ in pieces] == [0, 1, 1, 3]  # across boundary 1, inside 1, at the end
+        got = exp_mesh_join.check_sparse(case)
+        want = [exp_mesh_join.requested_bits(
+            ks.byte_scan_stream(full, case.needles, case.lens, n_real=3, max_words=9),
+            case.starts, case.counts)[r] for r in range(3)]
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert all(b[0].any() and not b[2].all() for b in got)
+        with pytest.raises(RuntimeError):
+            exp_mesh_join.measure("cpu", log=lambda m: None)
+        return
     case = next(c for c in exp_mesh_join.make_cases(mesh, bank, stream, rng, 60)
                 if c.label == label)
     want = case.wrapper()
