@@ -63,10 +63,22 @@
 //   word put the card's words where they belong in the joined bitmap of
 //   the whole mesh, which may be page-locked host memory the kernel writes
 //   through its device address.
+// - Every card's launches of one sharded scan from one host call
+//   (bs_scan_plan): a sharded call is a few launches of about 0.03 ms of
+//   device time each, so what bounds it as a caller sees it is host issue
+//   (argument checks, the device switch, the address lookup, the needle
+//   packing) paid once per launch and one card after another. The plan
+//   entry takes every launch as a record, checks them all, packs the
+//   needles once, switches device only when the card changes, looks the
+//   output's device address up once a card, records one event a card after
+//   its last launch and then waits for all of them, so the cards run while
+//   the host is still issuing and the caller makes one foreign call.
 // Bytes are compared as unsigned 32-bit words, so chunk bytes >= 0x80 (the
 // sign bit of an int32 word) compare like any other.
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <time.h>
 
 #define CHUNK_BYTES 512
 #define STRIDE 480
@@ -82,7 +94,7 @@
 #define MAX_DEVICES 64
 #define FULL_MASK 0xffffffffu
 
-// Everything but the C entry point has internal linkage: a process may load
+// Everything but the C entry points has internal linkage: a process may load
 // two builds of this file (another version, to compare), and a template's
 // function-local static would otherwise be one object shared by both.
 namespace {
@@ -363,20 +375,75 @@ int anchor_at(const uint8_t* b, int len) {
   return best;
 }
 
-// The address through which card `device` writes the page-locked host
-// memory at *p, in place of *p. The card's context is made current on the
-// calling thread first: a thread that has launched nothing yet may have
+// The address through which the current card writes the page-locked host
+// memory at *p, in place of *p: memory that is not page-locked
+// (cudaErrorInvalidHostPointer) or that the card cannot address
+// (cudaErrorInvalidDevicePointer) is refused. The caller makes the card's
+// context current first: a thread that has launched nothing yet may have
 // none, and then no device address is found.
-cudaError_t device_address(int device, int32_t** p) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+cudaError_t host_device_address(int32_t** p) {
   cudaPointerAttributes attr;
-  err = cudaPointerGetAttributes(&attr, *p);
+  cudaError_t err = cudaPointerGetAttributes(&attr, *p);
   if (err != cudaSuccess) return err;
   if (attr.type != cudaMemoryTypeHost) return cudaErrorInvalidHostPointer;
   if (attr.devicePointer == nullptr) return cudaErrorInvalidDevicePointer;
   *p = static_cast<int32_t*>(attr.devicePointer);
   return cudaSuccess;
+}
+
+// The needles (uint8[n_real, 32] bytes, int32[n_real] lengths) in the
+// kernel's form; cudaErrorInvalidValue for a count or a length it does not
+// take.
+int pack_needles(const uint8_t* needle_bytes, const int32_t* lens, int n_real, Needles* nd) {
+  if (n_real < 1 || n_real > MAX_NEEDLES) return (int)cudaErrorInvalidValue;
+  *nd = Needles{};
+  for (int n = 0; n < n_real; ++n) {
+    const int len = lens[n];
+    if (len < 0 || len > MAX_WINDOW) return (int)cudaErrorInvalidValue;
+    const uint8_t* b = needle_bytes + n * MAX_WINDOW;
+    nd->lens[n] = len;
+    for (int j = 0; j < len; ++j) nd->words[n][j / 4] |= (uint32_t)b[j] << (8 * (j % 4));
+    // A needle of up to 4 bytes is its own anchor (a window that matches
+    // it is a hit); a longer one is checked whole where its anchor is seen.
+    nd->anchor_at[n] = anchor_at(b, len);
+    nd->anchor_mask[n] = len >= 4 ? FULL_MASK : (1u << (8 * len)) - 1u;
+    for (int j = 0; j < 4 && nd->anchor_at[n] + j < len; ++j)
+      nd->anchor[n] |= (uint32_t)b[nd->anchor_at[n] + j] << (8 * j);
+    if (len <= 4) nd->short_needles |= 1u << n;
+  }
+  return 0;
+}
+
+int launch_needles(int n_real, const int32_t* rows, int64_t chunks, const Needles& nd,
+                   const Ranges& rg, int32_t* out, int64_t out_stride, void* stream) {
+  switch (n_real) {
+    case 1: return launch<1>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 2: return launch<2>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 3: return launch<3>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 4: return launch<4>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 5: return launch<5>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 6: return launch<6>(rows, chunks, nd, rg, out, out_stride, stream);
+    case 7: return launch<7>(rows, chunks, nd, rg, out, out_stride, stream);
+    default: return launch<8>(rows, chunks, nd, rg, out, out_stride, stream);
+  }
+}
+
+// One event a card for each thread that calls bs_scan_plan, made at the
+// thread's first call on the card (timing off) and kept until the thread
+// ends: two threads calling at once never wait on each other's event.
+struct ThreadEvents {
+  cudaEvent_t done[MAX_DEVICES] = {};
+  ~ThreadEvents() {
+    for (cudaEvent_t e : done)
+      if (e != nullptr) cudaEventDestroy(e);
+  }
+};
+thread_local ThreadEvents thread_events;
+
+int64_t monotonic_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
 }
 
 }  // namespace
@@ -392,10 +459,8 @@ cudaError_t device_address(int device, int32_t** p) {
 // one card, and one launch scans all of them. Output word w of needle n is
 // stored at out[n * out_stride + first_word + w]. With out_on_host, `out`
 // is page-locked host memory, which the kernel writes through its device
-// address on card `device` (the stream's card): memory that is not
-// page-locked (cudaErrorInvalidHostPointer) or that the card cannot
-// address (cudaErrorInvalidDevicePointer) is refused before anything is
-// launched. Launches on
+// address on card `device` (the stream's card); memory the card cannot
+// write that way is refused before anything is launched. Launches on
 // `stream` and returns cudaGetLastError() (or the error of a setup call):
 // 0 when the launch was accepted.
 extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t chunks,
@@ -404,25 +469,12 @@ extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t c
                               const int64_t* range_chunks, int n_ranges, int32_t* out,
                               int64_t out_stride, int64_t first_word, int out_on_host,
                               int device, void* stream) {
-  if (chunks <= 0 || chunks % TILE_CHUNKS != 0 || n_real < 1 || n_real > MAX_NEEDLES ||
-      n_ranges < 0 || n_ranges > MAX_SEGS || first_word < 0 ||
-      out_stride < first_word + chunks / TILE_CHUNKS)
+  if (chunks <= 0 || chunks % TILE_CHUNKS != 0 || n_ranges < 0 || n_ranges > MAX_SEGS ||
+      first_word < 0 || out_stride < first_word + chunks / TILE_CHUNKS)
     return (int)cudaErrorInvalidValue;
-  Needles nd = {};
-  for (int n = 0; n < n_real; ++n) {
-    const int len = lens[n];
-    if (len < 0 || len > MAX_WINDOW) return (int)cudaErrorInvalidValue;
-    const uint8_t* b = needle_bytes + n * MAX_WINDOW;
-    nd.lens[n] = len;
-    for (int j = 0; j < len; ++j) nd.words[n][j / 4] |= (uint32_t)b[j] << (8 * (j % 4));
-    // A needle of up to 4 bytes is its own anchor (a window that matches
-    // it is a hit); a longer one is checked whole where its anchor is seen.
-    nd.anchor_at[n] = anchor_at(b, len);
-    nd.anchor_mask[n] = len >= 4 ? FULL_MASK : (1u << (8 * len)) - 1u;
-    for (int j = 0; j < 4 && nd.anchor_at[n] + j < len; ++j)
-      nd.anchor[n] |= (uint32_t)b[nd.anchor_at[n] + j] << (8 * j);
-    if (len <= 4) nd.short_needles |= 1u << n;
-  }
+  Needles nd;
+  const int bad = pack_needles(needle_bytes, lens, n_real, &nd);
+  if (bad != 0) return bad;
   Ranges rg = {};
   rg.n = n_ranges;
   if (n_ranges > 0) {
@@ -442,19 +494,149 @@ extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t c
     return (int)cudaErrorInvalidValue;
   }
   if (out_on_host) {
-    const cudaError_t err = device_address(device, &out);
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = host_device_address(&out);
     if (err != cudaSuccess) return (int)err;
   }
-  out += first_word;
+  return launch_needles(n_real, rows, chunks, nd, rg, out + first_word, out_stride, stream);
+}
 
-  switch (n_real) {
-    case 1: return launch<1>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 2: return launch<2>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 3: return launch<3>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 4: return launch<4>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 5: return launch<5>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 6: return launch<6>(rows, chunks, nd, rg, out, out_stride, stream);
-    case 7: return launch<7>(rows, chunks, nd, rg, out, out_stride, stream);
-    default: return launch<8>(rows, chunks, nd, rg, out, out_stride, stream);
+// One segment-mode launch of bs_scan_plan: n_ranges ranges of stream
+// tensors on card `device` (range r reads rows [start[r], + chunks[r]) of
+// base[r]; each base holds rows_total rows, each count is a positive
+// multiple of 32), launched on `stream`, a stream of that card, its words
+// stored from word first_word of each output row. 128 bytes without
+// padding on a 64-bit host; kernels/scan.py::PlanLaunch mirrors it and
+// compares its size with bs_scan_plan_record_size() when it binds.
+struct PlanLaunch {
+  int32_t device;                  // offset 0
+  int32_t n_ranges;                // 4: 1..MAX_SEGS
+  void* stream;                    // 8: a cudaStream_t
+  const int32_t* base[MAX_SEGS];   // 16
+  int64_t start[MAX_SEGS];         // 48
+  int64_t chunks[MAX_SEGS];        // 80
+  int64_t rows_total;              // 112
+  int64_t first_word;              // 120
+};
+static_assert(offsetof(PlanLaunch, stream) == 8 && offsetof(PlanLaunch, base) == 16 &&
+                  offsetof(PlanLaunch, start) == 48 && offsetof(PlanLaunch, chunks) == 80 &&
+                  offsetof(PlanLaunch, rows_total) == 112 &&
+                  offsetof(PlanLaunch, first_word) == 120 && sizeof(PlanLaunch) == 128,
+              "PlanLaunch's layout is the one kernels/scan.py mirrors");
+
+extern "C" int bs_scan_plan_record_size() { return (int)sizeof(PlanLaunch); }
+
+// Every launch of one sharded scan, issued and waited for in one call.
+// needle_bytes (uint8[n_real, 32]) and lens (int32[n_real]) are host
+// arrays, packed once for all launches; plan holds n_launches records; out
+// is page-locked host memory of n_real rows of out_stride words, written
+// by every card through its own device address.
+//
+// Order: every record is checked before the first launch (a card's records
+// must share one stream); then the launches in plan order, the device
+// switched only when the card changes (and always before the first launch:
+// a fresh thread has no current context), the output's device address
+// looked up at each card's first launch (so memory that is not page-locked
+// is refused before anything is launched), one event recorded on a card's
+// stream after its last launch; then every card's event waited for, and
+// the caller's current device restored (torch assumes it is unchanged).
+//
+// A failure part-way still waits for every card that launched before it
+// returns: those kernels write `out`, which the caller frees or reuses once
+// this returns. Returns 0, or the first CUDA error (cudaErrorInvalidValue
+// for a record the kernel does not take). stamps, when not null, gets the
+// CLOCK_MONOTONIC ns at entry and once every launch and event is issued
+// (the measurement tool splits a call's host time with them).
+extern "C" int bs_scan_plan(const uint8_t* needle_bytes, const int32_t* lens, int n_real,
+                            const PlanLaunch* plan, int n_launches, int32_t* out,
+                            int64_t out_stride, int64_t* stamps) {
+  if (stamps != nullptr) stamps[0] = monotonic_ns();
+  if (plan == nullptr || n_launches < 1 || out == nullptr) return (int)cudaErrorInvalidValue;
+  Needles nd;
+  int rc = pack_needles(needle_bytes, lens, n_real, &nd);
+  if (rc != 0) return rc;
+  int last[MAX_DEVICES];  // each card's last launch, -1 for none
+  void* streams[MAX_DEVICES];
+  for (int d = 0; d < MAX_DEVICES; ++d) last[d] = -1;
+  for (int i = 0; i < n_launches; ++i) {
+    const PlanLaunch& p = plan[i];
+    if (p.device < 0 || p.device >= MAX_DEVICES || p.n_ranges < 1 || p.n_ranges > MAX_SEGS ||
+        p.first_word < 0 || (last[p.device] >= 0 && streams[p.device] != p.stream))
+      return (int)cudaErrorInvalidValue;
+    int64_t chunks = 0;
+    for (int r = 0; r < p.n_ranges; ++r) {
+      if (p.base[r] == nullptr || p.chunks[r] <= 0 || p.chunks[r] % TILE_CHUNKS != 0 ||
+          p.start[r] < 0 || p.start[r] + p.chunks[r] > p.rows_total)
+        return (int)cudaErrorInvalidValue;
+      chunks += p.chunks[r];
+    }
+    if (out_stride < p.first_word + chunks / TILE_CHUNKS) return (int)cudaErrorInvalidValue;
+    last[p.device] = i;
+    streams[p.device] = p.stream;
   }
+  int caller = 0;
+  rc = (int)cudaGetDevice(&caller);
+  if (rc != 0) return rc;
+
+  ThreadEvents& events = thread_events;
+  int32_t* card_out[MAX_DEVICES] = {};  // the output's address on each card
+  bool recorded[MAX_DEVICES] = {};
+  int launched[MAX_DEVICES];  // the cards that may have launched, in order
+  int n_cards = 0;
+  int current = -1;
+  for (int i = 0; i < n_launches && rc == 0; ++i) {
+    const PlanLaunch& p = plan[i];
+    const int d = p.device;
+    if (d != current) {
+      rc = (int)cudaSetDevice(d);
+      if (rc != 0) break;
+      current = d;
+    }
+    if (card_out[d] == nullptr) {
+      int32_t* addr = out;
+      rc = (int)host_device_address(&addr);
+      if (rc == 0 && events.done[d] == nullptr)
+        rc = (int)cudaEventCreateWithFlags(&events.done[d], cudaEventDisableTiming);
+      if (rc != 0) break;
+      card_out[d] = addr;
+      launched[n_cards++] = d;  // from here on waited for below, whatever follows
+    }
+    Ranges rg = {};
+    rg.n = p.n_ranges;
+    int64_t off = 0;
+    for (int r = 0; r < p.n_ranges; ++r) {
+      rg.base[r] = p.base[r];
+      rg.starts[r] = p.start[r];
+      rg.offsets[r] = off;
+      off += p.chunks[r];
+    }
+    rg.offsets[p.n_ranges] = off;
+    rc = launch_needles(n_real, p.base[0], off, nd, rg, card_out[d] + p.first_word, out_stride,
+                        p.stream);
+    if (rc != 0) break;
+    if (i == last[d]) {
+      rc = (int)cudaEventRecord(events.done[d], static_cast<cudaStream_t>(p.stream));
+      recorded[d] = rc == 0;
+    }
+  }
+  if (stamps != nullptr) stamps[1] = monotonic_ns();
+  for (int k = 0; k < n_cards; ++k) {
+    const int d = launched[k];
+    cudaError_t err;
+    if (recorded[d]) {
+      err = cudaEventSynchronize(events.done[d]);
+    } else {  // failed before its event: wait for the card's whole stream
+      err = cudaSetDevice(d);
+      if (err == cudaSuccess) {
+        current = d;
+        err = cudaStreamSynchronize(static_cast<cudaStream_t>(streams[d]));
+      }
+    }
+    if (rc == 0) rc = (int)err;
+  }
+  if (current != caller) {
+    const cudaError_t err = cudaSetDevice(caller);
+    if (rc == 0) rc = (int)err;
+  }
+  return rc;
 }

@@ -22,14 +22,16 @@ row n is set iff needle n occurs at a start < 480 of logical chunk 32w+i
 (the JAX package's ``pack_bitmap`` contract, read as uint32 on the host).
 A needle of length 0 matches every chunk.
 
-``byte_scan_ranges_into`` is the launch under the sharded scans (K3,
-``parallel/mesh.py``): up to ``MAX_SEGMENTS`` ranges of one card's stream
-shards in one segment-mode launch (each range has its own base pointer),
-with its words stored at a given first word of each row of an output that
-may be wider (the joined bitmap of a whole mesh) and may be page-locked
-host memory, which the kernel then writes through its device address.
-``byte_scan_shards_into`` is that launch over whole shards (the dense
-sharded scan).
+``byte_scan_ranges_into`` is one segment-mode launch over up to
+``MAX_SEGMENTS`` ranges of one card's stream tensors (each range has its
+own base pointer), with its words stored at a given first word of each row
+of an output that may be wider and may be page-locked host memory, which
+the kernel then writes through its device address.
+``byte_scan_plan_into`` is what the sharded scans (K3, ``parallel/mesh.py``)
+and the row cache's sparse scan call: every launch of one call (a plan of
+such launches, on one card or several) into one page-locked joined bitmap,
+issued and waited for in one foreign call (``csrc/scan.cu``'s
+``bs_scan_plan``), which ctypes makes with the interpreter lock released.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,6 +68,29 @@ def scan_word_bucket(max_len: int) -> int:
         if need <= b:
             return b
     return SCAN_WORD_BUCKETS[-1]
+
+
+# One launch of a plan: (first output word, [(stream tensor, first row,
+# rows), ...] of up to MAX_SEGMENTS ranges on one device).
+PlanLaunchArgs = tuple[int, Sequence[tuple[torch.Tensor, int, int]]]
+
+
+class PlanLaunch(ctypes.Structure):
+    """One launch record of ``bs_scan_plan``, the mirror of ``csrc/scan.cu``'s
+    ``PlanLaunch`` (128 bytes without padding: device 0, n_ranges 4, stream
+    8, base 16, start 48, chunks 80, rows_total 112, first_word 120).
+    ``library()`` refuses a build whose record size differs."""
+
+    _fields_ = [
+        ("device", ctypes.c_int32),
+        ("n_ranges", ctypes.c_int32),
+        ("stream", ctypes.c_void_p),
+        ("base", ctypes.c_void_p * MAX_SEGMENTS),
+        ("start", ctypes.c_int64 * MAX_SEGMENTS),
+        ("chunks", ctypes.c_int64 * MAX_SEGMENTS),
+        ("rows_total", ctypes.c_int64),
+        ("first_word", ctypes.c_int64),
+    ]
 
 
 _lib_lock = threading.Lock()
@@ -116,7 +141,9 @@ def build_library(force: bool = False) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built at first use and bound with ctypes."""
+    """The kernel library, built at first use and bound with ctypes. Raises
+    when its plan record is not the size of ``PlanLaunch`` (a launch would
+    read its pointers from the wrong bytes)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -128,6 +155,14 @@ def library() -> ctypes.CDLL:
             lib.bs_scan_launch.argtypes = [p, i64, i64, p, p, i32, p, p, p, i32, p, i64, i64,
                                            i32, i32, p]
             lib.bs_scan_launch.restype = ctypes.c_int
+            lib.bs_scan_plan.argtypes = [p, p, i32, p, i32, p, i64, p]
+            lib.bs_scan_plan.restype = ctypes.c_int
+            lib.bs_scan_plan_record_size.argtypes = []
+            lib.bs_scan_plan_record_size.restype = ctypes.c_int
+            size = lib.bs_scan_plan_record_size()
+            if size != ctypes.sizeof(PlanLaunch):
+                raise RuntimeError(f"{LIBRARY}: a plan record is {size} bytes, PlanLaunch "
+                                   f"{ctypes.sizeof(PlanLaunch)}")
             _lib = lib
     return _lib
 
@@ -149,12 +184,15 @@ def _check(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
     if not 1 <= n_real <= N <= MAX_SCAN_NEEDLES:
         raise ValueError(f"n_real={n_real} of N={N} needles (at most {MAX_SCAN_NEEDLES})")
     real = needles[:n_real]
-    if real.min() < 0 or real.max() > 255:
+    # A value with any bit above the low byte (a negative one included) is
+    # not a byte: one reduction finds it.
+    if int(np.bitwise_or.reduce(real, axis=None)) & ~0xFF:
         raise ValueError("needle values must be bytes (0..255)")
     lens = lens[:n_real].astype(np.int32)
-    if lens.min() < 0 or lens.max() > min(MAX_SCAN_WINDOW, 4 * max_words - 3):
-        raise ValueError(f"needle lengths {lens.tolist()} exceed the word bucket {max_words}")
-    return np.ascontiguousarray(real, dtype=np.uint8), lens
+    short = lens.tolist()
+    if min(short) < 0 or max(short) > min(MAX_SCAN_WINDOW, 4 * max_words - 3):
+        raise ValueError(f"needle lengths {short} exceed the word bucket {max_words}")
+    return real.astype(np.uint8), lens
 
 
 def segment_layout(starts: Sequence[int], chunks: Union[int, Sequence[int]],
@@ -329,15 +367,118 @@ def byte_scan_ranges_into(out: torch.Tensor, first_word: int, bases: Sequence[to
     _count(count_as, chunks, n_real, counts, max_words)
 
 
-def byte_scan_shards_into(out: torch.Tensor, first_word: int, shards: Sequence[torch.Tensor],
-                          needles: np.ndarray, lens: np.ndarray, *, n_real: int,
-                          max_words: int) -> None:
-    """Dense mode over up to ``MAX_SEGMENTS`` stream shards of one device,
-    all ``int32[rows, 128]``, as one stream of their rows in order: shard
-    i's packed words land at ``out[:, first_word + i*rows/32 : first_word +
-    (i+1)*rows/32]``. One ``byte_scan_ranges_into`` launch, a range a whole
-    shard, counted as a dense (``stream``) launch whose shape key holds the
-    launch's chunk count and the shards' row counts."""
-    byte_scan_ranges_into(out, first_word, shards, [0] * len(shards),
-                          [s.shape[0] for s in shards], needles, lens, n_real=n_real,
-                          max_words=max_words, count_as="stream")
+def _check_plan(out: torch.Tensor, plan: Sequence[PlanLaunchArgs],
+                n_real: int) -> list[tuple[torch.device, int]]:
+    """Refuse a plan the kernel does not take -> each launch's (device,
+    chunks). Each distinct base is checked once (a plan's ranges share a
+    few shards)."""
+    if not plan:
+        raise ValueError("an empty plan")
+    first = plan[0][1][0][0]
+    shape, dtype, kind = first.shape, first.dtype, first.device.type
+    rows = shape[0]
+    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != n_real):
+        raise ValueError(f"out must be a contiguous int32[{n_real}, words] tensor")
+    width = out.shape[1]
+    devices: dict[int, torch.device] = {}  # id of a checked base -> its device
+    launches = []
+    for first_word, ranges in plan:
+        if not 1 <= len(ranges) <= MAX_SEGMENTS:
+            raise ValueError(f"a launch of {len(ranges)} ranges: it takes 1..{MAX_SEGMENTS}")
+        device = None
+        n = 0
+        for base, s, c in ranges:
+            at = devices.get(id(base))
+            if at is None:
+                if base.shape != shape or base.dtype != dtype or not base.is_contiguous() \
+                        or base.device.type != kind:
+                    raise ValueError("a plan's bases must be contiguous tensors of one shape "
+                                     "and type")
+                at = devices[id(base)] = base.device
+            if device is None:
+                device = at
+            elif at != device:
+                raise ValueError(f"a launch's ranges lie on {device} and {at}")
+            if c <= 0 or c % TILE_CHUNKS or s < 0 or s + c > rows:
+                raise ValueError(f"range [{s}, {s + c}) of a {rows}-row base: counts must be "
+                                 f"positive multiples of {TILE_CHUNKS} inside the base")
+            n += c
+        if first_word < 0 or width < first_word + n // TILE_CHUNKS:
+            raise ValueError(f"a launch of {n} chunks from word {first_word} of {width}")
+        launches.append((device, n))
+    return launches
+
+
+def plan_records(plan: Sequence[PlanLaunchArgs], streams: Mapping) -> ctypes.Array:
+    """``plan`` as ``bs_scan_plan``'s records, each launch on the stream
+    handle ``streams`` gives for its device (-1 stands for the CPU's
+    device index, which no card has)."""
+    records = (PlanLaunch * len(plan))()
+    for rec, (first_word, ranges) in zip(records, plan):
+        device = ranges[0][0].device
+        rec.device = -1 if device.index is None else device.index
+        rec.n_ranges = len(ranges)
+        rec.stream = streams[device]
+        for r, (base, s, c) in enumerate(ranges):
+            rec.base[r] = base.data_ptr()
+            rec.start[r] = s
+            rec.chunks[r] = c
+        rec.rows_total = ranges[0][0].shape[0]
+        rec.first_word = first_word
+    return records
+
+
+def plan_call(needle_bytes: np.ndarray, lens: np.ndarray, records: ctypes.Array,
+              out: torch.Tensor, stamps: Optional[ctypes.Array] = None) -> None:
+    """The one foreign call of a plan (``_check``'s needle arrays, the
+    records, the page-locked output); ``stamps``, an int64[2] ctypes array,
+    gets the monotonic ns at its entry and once it has issued everything."""
+    err = library().bs_scan_plan(needle_bytes.ctypes.data, lens.ctypes.data,
+                                 needle_bytes.shape[0], records, len(records), out.data_ptr(),
+                                 out.shape[1], stamps)
+    if err != 0:
+        raise RuntimeError(f"scan plan failed: cudaError {err}")
+
+
+def byte_scan_plan_into(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], needles: np.ndarray,
+                        lens: np.ndarray, *, n_real: int, max_words: int,
+                        count_as: str = "segments") -> None:
+    """Every launch of ``plan`` into ``out`` (``int32[n_real, words]``):
+    launch ``(first_word, ranges)`` reads ranges ``(base, first row, rows)``
+    of stream tensors ``int32[rows, 128]`` of one shape on one device (rows
+    a positive multiple of 32), and its packed words land one after another
+    at ``out[:, first_word:]``.
+
+    On CUDA bases: ``out`` is page-locked host memory and the whole plan is
+    one foreign call (``bs_scan_plan``): the needles checked and packed
+    once, each launch issued on its card's current stream, every card's
+    launches issued before any is waited for, and the call returns once
+    every card is done (after a failure too, before it raises), the
+    caller's current device unchanged. Each launch counts once as a
+    ``count_as`` launch (its shape key: the launch's chunks and range
+    counts). On CPU bases: the plain version, range by range, into the same
+    slices (counted nowhere)."""
+    if not plan:
+        raise ValueError("an empty plan")
+    first = plan[0][1][0][0]
+    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
+    launches = _check_plan(out, plan, n_real)
+    if first.device.type == "cpu":
+        for first_word, ranges in plan:
+            at = first_word
+            for base, s, c in ranges:
+                out[:, at : at + c // TILE_CHUNKS] = byte_scan_plain(
+                    base[s : s + c], needle_bytes, real_lens, n_real)
+                at += c // TILE_CHUNKS
+        return
+    if out.device.type != "cpu":
+        raise ValueError(f"a plan writes page-locked host memory, not {out.device}")
+    # Each card's current stream as its raw handle: the value of
+    # torch.cuda.current_stream(device).cuda_stream, from the getter torch's
+    # own generated kernels use, with no Stream object built for it.
+    streams = {device: torch._C._cuda_getCurrentRawStream(device.index)
+               for device in dict.fromkeys(device for device, _ in launches)}
+    plan_call(needle_bytes, real_lens, plan_records(plan, streams), out)
+    for (_, ranges), (_, n) in zip(plan, launches):
+        _count(count_as, n, n_real, [c for _, _, c in ranges], max_words)

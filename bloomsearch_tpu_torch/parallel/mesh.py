@@ -24,9 +24,12 @@ requested chunk ranges: each is cut into pieces that lie in one shard
 segment-mode launch over up to 4 of a card's pieces, each read in place.
 Each launch stores its words straight into one joined bitmap, a
 page-locked host buffer taken per call from torch's pinned allocator, at
-the word offset of its first shard or piece; the caller then waits on one
-event a card. That bitmap is bit-for-bit the unsharded kernel's output
-because every shard is a contiguous range whose width is a multiple of 32
+the word offset of its first shard or piece. The probe wrappers then wait
+on one event a card (``_joined``); the two scans hand all their launches
+to one foreign call that issues every card's launches and waits for them
+(``kernels/scan.py::byte_scan_plan_into``). That bitmap is bit-for-bit the
+unsharded kernel's output because every shard is a contiguous range whose
+width is a multiple of 32
 (128·n columns, 512·n chunks); the sparse scan's is the single-device
 sparse layout, each range's requested chunks one run of it. The probe
 arrays and needles are host arrays that travel in each launch's
@@ -56,13 +59,7 @@ import numpy as np
 import torch
 
 from ..kernels.probe import MAX_SHARDS, probe_shards_into
-from ..kernels.scan import (
-    CHUNK_BYTES,
-    MAX_SEGMENTS,
-    TILE_CHUNKS,
-    byte_scan_ranges_into,
-    byte_scan_shards_into,
-)
+from ..kernels.scan import CHUNK_BYTES, MAX_SEGMENTS, TILE_CHUNKS, byte_scan_plan_into
 
 BLOCK_AXIS = "blocks"
 LANE = 128  # bank columns per shard unit (the JAX package's lane tile)
@@ -368,21 +365,36 @@ def card_layout(x: Sharded, axis: int, capacity: int) -> list[CardShards]:
     return out
 
 
+def _card_done(device: torch.device):
+    """An event recorded on the card's current stream after its launches
+    (None on the CPU, where the plain versions ran before they returned)."""
+    return torch.cuda.current_stream(device).record_event() if device.type == "cuda" else None
+
+
 def _joined(shards: tuple, out_rows: int, words: int, plan: list, launch) -> torch.Tensor:
     """The joined int32[out_rows, words] bitmap of ``launch(out, first_word,
     arg)`` over ``plan``, ``[(device, [(first word, arg), ...]), ...]``:
     every card's launches issued first, then one event a card waited for.
-    On cards the output is page-locked host memory the kernels write."""
-    on_cards = shards[0].device.type == "cuda"
-    out = torch.empty((out_rows, words), dtype=torch.int32, pin_memory=on_cards)
+    On cards the output is page-locked host memory the kernels write.
+
+    A launch that raises part-way is re-raised only after every card that
+    was reached has been waited for: the kernels already queued write
+    ``out``, which torch's pinned allocator hands to the next caller once
+    it is freed."""
+    out = torch.empty((out_rows, words), dtype=torch.int32,
+                      pin_memory=shards[0].device.type == "cuda")
     done = []
-    for device, launches in plan:
-        for first_word, arg in launches:
-            launch(out, first_word, arg)
-        if on_cards:
-            done.append(torch.cuda.current_stream(device).record_event())
-    for event in done:
-        event.synchronize()
+    try:
+        for device, launches in plan:
+            try:
+                for first_word, arg in launches:
+                    launch(out, first_word, arg)
+            finally:
+                done.append(_card_done(device))
+    finally:
+        for event in done:
+            if event is not None:
+                event.synchronize()
     return out
 
 
@@ -442,12 +454,28 @@ def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,
     The dense stream mode only (480 payload bytes a chunk, what the row
     cache scans): chunk overlap bytes are duplicated into each chunk at
     pack time, so shard boundaries need no halo exchange. A card's shards
-    are one launch of up to 4 ranges (``MAX_SEGMENTS``); needles travel as
-    kernel arguments from the host."""
-    out = _joined_call(rows32, 0, n_real, MAX_SEGMENTS, lambda o, w, shards: (
-        byte_scan_shards_into(o, w, shards, needles, lens, n_real=n_real,
-                              max_words=max_words)))
-    _count("sharded_scan_all_rows", _shards(rows32))
+    are one launch of up to 4 whole-shard ranges (``MAX_SEGMENTS``),
+    counted as dense (``stream``) launches; needles travel as kernel
+    arguments from the host. All the launches are one
+    ``byte_scan_plan_into`` call."""
+    shards = _shards(rows32)
+    rows = shards[0].shape[0]
+    plan = [(card.offsets[card.shards.index(run[0])], [(shards[i], 0, rows) for i in run])
+            for card in card_layout(rows32, 0, MAX_SEGMENTS) for run in card.launches]
+    out = _scan_plan(shards, logical_size(rows32, 0) // TILE_CHUNKS, plan, needles, lens,
+                     n_real, max_words, "stream")
+    _count("sharded_scan_all_rows", shards)
+    return out
+
+
+def _scan_plan(shards: tuple, words: int, plan: list, needles: np.ndarray, lens: np.ndarray,
+               n_real: int, max_words: int, count_as: str) -> torch.Tensor:
+    """``plan``'s launches into a new int32[n_real, words] bitmap,
+    page-locked on cards."""
+    out = torch.empty((n_real, words), dtype=torch.int32,
+                      pin_memory=shards[0].device.type == "cuda")
+    byte_scan_plan_into(out, plan, needles, lens, n_real=n_real, max_words=max_words,
+                        count_as=count_as)
     return out
 
 
@@ -526,7 +554,7 @@ def piece_launches(pieces: Sequence[tuple[int, int, int]], devices: Sequence,
     return list(plan.items())
 
 
-def sharded_scan_segments(mesh: Mesh, rows32: Sharded, seg_starts: Sequence[int],
+def sharded_scan_segments(mesh: Optional[Mesh], rows32: Sharded, seg_starts: Sequence[int],
                           needles: np.ndarray, lens: np.ndarray, *, n_real: int,
                           max_words: int,
                           seg_chunks: Sequence[int]) -> tuple[torch.Tensor, list[int]]:
@@ -538,23 +566,30 @@ def sharded_scan_segments(mesh: Mesh, rows32: Sharded, seg_starts: Sequence[int]
     (``segment_pieces``) laid end to end, range r's requested chunks at
     logical output chunk ``range_base[r]`` on; the chunks added by rounding
     are scanned and ignored by callers. One segment-mode launch covers up
-    to ``MAX_SEGMENTS`` pieces of one card (``piece_launches``), and only
-    cards that hold a piece launch."""
+    to ``MAX_SEGMENTS`` pieces of one card (``piece_launches``), only cards
+    that hold a piece launch, and all the launches are one
+    ``byte_scan_plan_into`` call. With ``mesh`` None, ``rows32`` is one
+    stream tensor (the single-device row cache): one shard, whose pieces
+    are ``segment_layout``'s ranges, one launch; only a mesh's calls count
+    in ``launch_counts()``."""
     shards = _shards(rows32)
+    plan, words, range_base = segment_plan(shards, seg_starts, seg_chunks)
+    out = _scan_plan(shards, words, plan, needles, lens, n_real, max_words, "segments")
+    if mesh is not None:
+        _count("sharded_scan_segments", shards)
+    return out, range_base
+
+
+def segment_plan(shards: tuple, seg_starts: Sequence[int],
+                 seg_chunks: Sequence[int]) -> tuple[list, int, list[int]]:
+    """The sparse scan's launches over the stream ``shards`` -> (the plan
+    of ``byte_scan_plan_into``: ``piece_launches``' launches in order, each
+    piece a range of its shard; the output's words; ``range_base``)."""
     counts = list(seg_chunks)
     if len(counts) != len(seg_starts):
         raise ValueError(f"{len(seg_starts)} starts and {len(counts)} chunk counts")
     pieces, range_base = segment_pieces(seg_starts, counts, shards[0].shape[0], len(shards))
-    plan = [(dev, [(word, [pieces[i] for i in idx]) for word, idx in launches])
-            for dev, launches in piece_launches(pieces, [s.device for s in shards],
-                                                MAX_SEGMENTS)]
-    words = sum(rows for _, _, rows in pieces) // TILE_CHUNKS
-
-    def launch(out, first_word, part):
-        byte_scan_ranges_into(out, first_word, [shards[i] for i, _, _ in part],
-                              [read for _, read, _ in part], [rows for _, _, rows in part],
-                              needles, lens, n_real=n_real, max_words=max_words)
-
-    out = _joined(shards, n_real, words, plan, launch)
-    _count("sharded_scan_segments", shards)
-    return out, range_base
+    plan = [(word, [(shards[pieces[i][0]], pieces[i][1], pieces[i][2]) for i in idx])
+            for _, launches in piece_launches(pieces, [s.device for s in shards], MAX_SEGMENTS)
+            for word, idx in launches]
+    return plan, sum(rows for _, _, rows in pieces) // TILE_CHUNKS, range_base

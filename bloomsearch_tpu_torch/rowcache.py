@@ -50,7 +50,10 @@ rows may straddle shards). A mesh chooses sparse or dense by the
 single-device rule: a dense scan covers every shard
 (``sharded_scan_all_rows``), a sparse one reads just the requested ranges
 on the cards that hold them (``sharded_scan_segments``), where the
-reference scans every shard in full.
+reference scans every shard in full. On one device a sparse scan is the
+same call on the one stream tensor (one launch, into page-locked host
+memory, issued and waited for in one foreign call); a dense one is
+``byte_scan_stream``.
 
 Snapshot consistency without immutable arrays (the rule of bloom/bank.py):
 a scan captures ``matrix`` (the whole tuple of shards on a mesh) and the
@@ -81,7 +84,6 @@ from .kernels import scan as _scan_kernel
 from .kernels.scan import (
     MAX_SCAN_NEEDLES,
     SCAN_WORD_BUCKETS,
-    byte_scan_segments,
     byte_scan_stream,
     scan_word_bucket,
 )
@@ -925,16 +927,10 @@ class DeviceRowCache:
         if seg_chunks * 4 <= phys_cap:
             if yield_to is not None:
                 yield_to()
-            if self.mesh is not None:
-                sharded_scan_segments(
-                    self.mesh, matrix, [0], padded, lens, n_real=1,
-                    max_words=max_words, seg_chunks=[max(max_chunks, 1)],
-                )
-            else:
-                byte_scan_segments(
-                    matrix, [0], padded, lens, n_real=1,
-                    max_words=max_words, seg_chunks=max(max_chunks, 1),
-                ).cpu()
+            sharded_scan_segments(
+                self.mesh, matrix, [0], padded, lens, n_real=1,
+                max_words=max_words, seg_chunks=[max(max_chunks, 1)],
+            )
             launched += 1
         return launched
 
@@ -1073,8 +1069,9 @@ class DeviceRowCache:
         #  - SPARSE (few blocks of a big stream — needle queries at
         #    reference scale ask for 3 of 240): the kernel's segment mode
         #    scans just the requested chunk segments in place (on a mesh,
-        #    on the cards that hold them); both the scanned bytes and the
-        #    returned bitmap shrink by the sparsity factor.
+        #    on the cards that hold them; on one device, the same call on
+        #    one shard); both the scanned bytes and the returned bitmap
+        #    shrink by the sparsity factor.
         phys_cap = logical_size(matrix, 0)
         # Unique requested chunk ranges (chunk_start, n_chunks).
         ranges = sorted(
@@ -1099,19 +1096,6 @@ class DeviceRowCache:
             and seg_chunks <= phys_cap
             and n_segs * seg_chunks * 4 <= phys_cap
         )
-        if sparse and self.mesh is None:
-            # A sparse launch reads just the requested ranges, each rounded
-            # up to the kernel's 32-chunk tile and clamped into the stream;
-            # range (ps, pn) starts at logical chunk range_base[(ps, pn)]
-            # (on a mesh, sharded_scan_segments returns its own).
-            starts, counts = _scan_kernel.segment_layout(
-                [ps for ps, _ in ranges], [pn for _, pn in ranges], phys_cap
-            )
-            offsets = np.cumsum([0] + counts[:-1])
-            range_base = {
-                rng: int(off) + rng[0] - st
-                for rng, st, off in zip(ranges, starts, offsets)
-            }
 
         fresh: dict[bytes, np.ndarray] = {}
         if missing:
@@ -1132,19 +1116,17 @@ class DeviceRowCache:
                     padded[row, : len(needle)] = np.frombuffer(needle, dtype=np.uint8)
                     lens[row] = len(needle)
                 self.launches += 1  # one per DEVICE launch, not per pass
-                if sparse and self.mesh is not None:
+                if sparse:
+                    # Just the requested ranges, each rounded up to the
+                    # kernel's 32-chunk tile (cut at shard boundaries on a
+                    # mesh); range (ps, pn) starts at logical chunk
+                    # range_base[(ps, pn)] of the page-locked result.
                     out, bases = sharded_scan_segments(
                         self.mesh, matrix, [ps for ps, _ in ranges], padded, lens,
                         n_real=n_real, max_words=max_words,
                         seg_chunks=[pn for _, pn in ranges],
                     )
                     range_base = dict(zip(ranges, bases))
-                elif sparse:
-                    out = byte_scan_segments(
-                        matrix, [ps for ps, _ in ranges], padded, lens,
-                        n_real=n_real, max_words=max_words,
-                        seg_chunks=[pn for _, pn in ranges],
-                    )
                 elif self.mesh is not None:
                     out = sharded_scan_all_rows(
                         self.mesh, matrix, padded, lens, n_real=n_real,

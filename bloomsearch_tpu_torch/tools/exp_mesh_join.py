@@ -2,16 +2,19 @@
 launch-and-join form, and the two ways to land a card's words in the
 joined bitmap, with a breakdown of each call.
 
-Three forms of each sharded call, all bit-identical:
+Four forms of each sharded call, all bit-identical:
 
 - ``old``, the earlier per-shard form (kept here, not in the package):
   the single-device kernel once per shard, each into its own device output, each shard's
   bitmap copied into a new page-locked buffer, every card's whole current
   stream synchronised, the buffers joined on the host with ``torch.cat``;
-- ``mapped``, the package's (``parallel/mesh.py``): one launch a card over
-  all of its shards (``card_layout``), storing straight into one
-  page-locked joined buffer through its device address, one event a card
-  waited for;
+- ``per_launch``: one launch a card over all of its shards
+  (``card_layout``), storing straight into one page-locked joined buffer
+  through its device address, each launch its own foreign call, then one
+  event a card waited for (``parallel/mesh.py::_joined``);
+- ``mapped``, the package's wrapper: for the probes the ``per_launch``
+  form itself; for the dense scan the same launches issued and waited for
+  in one foreign call (``kernels/scan.py::byte_scan_plan_into``);
 - ``copy``: the same launches into a device buffer a launch, each copied
   to its offset of the page-locked joined buffer by one strided
   ``cudaMemcpy2DAsync`` (built here from a few lines of CUDA C into a
@@ -20,8 +23,9 @@ Three forms of each sharded call, all bit-identical:
 At the main path's shapes on a 4-shard mesh (the refscale bank, R =
 1,347,900 rows of 4 x 128 columns; the refscale stream, 4 x 900,096 chunks)
 each form's call is timed as a caller sees it (host clock between
-synchronisations of every card), the forms in turns (old, mapped, copy,
-copy, mapped, old), and each is split into:
+synchronisations of every card), the forms in turns (``FORMS`` and back),
+and the ``old``, ``per_launch`` and ``copy`` forms, whose launches the
+host issues one by one, are each split into:
 
 - ``issue_ms``: host time from the call's start until its last launch is
   enqueued, and ``issue_per_launch_ms`` over its launches;
@@ -39,12 +43,25 @@ calls of its own, not in the timed ones.
 The sparse case (K3-e, ``sharded_scan_segments``): three requested chunk
 ranges of a refscale block's size (one across a shard boundary, one inside
 a shard, one ending at the stream's end; 8 needles, the main path's most
-launched segment shape) read in place on the cards that hold them, timed
-in turns (dense, sparse, single, single, sparse, dense) against the dense
-sharded call over every chunk (K3-d) and the single-device segment launch
-over the same ranges of the stream joined on one card, its answers equal
-to both at every requested chunk, with ``host_us`` per step of the sparse
-call. Data is random, made on the card
+launched segment shape) read in place on the cards that hold them. Five
+calls, their answers equal at every requested chunk, timed in turns
+(``SPARSE_FORMS`` and back):
+
+- ``per_launch``, the earlier form (kept here, not in the package): the
+  same launches, one ``byte_scan_ranges_into`` foreign call each, then an
+  event a card waited for (``parallel/mesh.py::_joined``);
+- ``sparse``, the package's: every launch issued and waited for in one
+  foreign call (``byte_scan_plan_into``);
+- ``one_card``: the single-device row cache's sparse call, the same entry
+  over the stream joined on one card (one launch);
+- ``single``: the earlier single-device sparse call, the segment launch
+  into a device buffer and its copy to the host;
+- ``dense``: the dense sharded call over every chunk (K3-d).
+
+``host_us`` gives each step of the per-launch form, the whole calls, and
+the package's call split into building its records, entering the foreign
+call, issuing every launch and event, and waiting (monotonic-clock stamps
+the C entry takes). Data is random, made on the card
 from the seed; ``chip_smoke.py`` runs the same turns on the engine's
 resident refscale state.
 
@@ -85,7 +102,9 @@ SHARD_CHUNKS = 900_096  # the refscale stream (3,600,384 chunks) over 4 shards
 K = 10
 CLAUSES = [0b0011, 0b1100]  # the OR tree's two clauses of two terms, one member
 MEMBERS = [0b11]
-FORMS = ("old", "mapped", "copy")
+FORMS = ("old", "per_launch", "mapped", "copy")
+TRACED_FORMS = ("old", "per_launch", "copy")
+SPARSE_FORMS = ("per_launch", "sparse", "one_card", "single", "dense")
 COPY_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,13 +168,21 @@ def probe_case(label: str, mesh, shards: tuple, epilogue: str, rows, shifts, T: 
                                                      **extra), wrapper)
 
 
+def shards_into(out: torch.Tensor, first_word: int, shards, needles, lens, **kw) -> None:
+    """One dense launch over whole stream shards of one card into ``out``
+    from ``first_word`` (a ``stream`` launch, as the dense sharded scan
+    counts its launches)."""
+    ks.byte_scan_ranges_into(out, first_word, shards, [0] * len(shards),
+                             [s.shape[0] for s in shards], needles, lens, count_as="stream", **kw)
+
+
 def scan_case(label: str, mesh, shards: tuple, needles, lens, n_real: int,
               max_words: int = 9) -> Case:
     """A sharded dense scan."""
     kw = dict(n_real=n_real, max_words=max_words)
     return Case(label, shards, 0, n_real, ks.MAX_SEGMENTS,
                 lambda s: ks.byte_scan_stream(s, needles, lens, **kw),
-                lambda o, w, s: ks.byte_scan_shards_into(o, w, s, needles, lens, **kw),
+                lambda o, w, s: shards_into(o, w, s, needles, lens, **kw),
                 lambda: pm.sharded_scan_all_rows(mesh, shards, needles, lens, **kw))
 
 
@@ -272,13 +299,16 @@ def form_call(case: Case, form: str, copy_lib=None) -> Callable[[], torch.Tensor
     """The timed call of ``form``: ``mapped`` is the package's wrapper."""
     if form == "old":
         return lambda: old_call(case)
+    if form == "per_launch":
+        return lambda: joined_call(case, "mapped")
     if form == "mapped":
         return case.wrapper
     return lambda: joined_call(case, "copy", copy_lib)
 
 
 def breakdown(case: Case, form: str, copy_lib=None) -> dict:
-    """One traced call of ``form`` -> its breakdown (module doc)."""
+    """One traced call of ``form`` (``TRACED_FORMS``) -> its breakdown
+    (module doc)."""
     devices = list(dict.fromkeys(s.device for s in case.shards))
     for d in devices:
         torch.cuda.synchronize(d)
@@ -286,7 +316,7 @@ def breakdown(case: Case, form: str, copy_lib=None) -> dict:
     if form == "old":
         old_call(case, trace)
     else:
-        joined_call(case, form, copy_lib, trace)
+        joined_call(case, "mapped" if form == "per_launch" else form, copy_lib, trace)
     t = trace.t
     cards = {}
     for d in devices:
@@ -405,6 +435,28 @@ class SparseCase:
         return pm.sharded_scan_segments(self.mesh, self.shards, self.starts, self.needles,
                                         self.lens, seg_chunks=self.counts, **self._kw())
 
+    def per_launch(self) -> tuple:
+        """The earlier form of the same call: the package's launches, one
+        ``byte_scan_ranges_into`` each, then an event a card -> (words,
+        range_base)."""
+        plan, words, range_base = pm.segment_plan(self.shards, self.starts, self.counts)
+        by_card: dict = {}
+        for word, ranges in plan:
+            by_card.setdefault(ranges[0][0].device, []).append((word, ranges))
+
+        def launch(out, first_word, ranges):
+            ks.byte_scan_ranges_into(out, first_word, [b for b, _, _ in ranges],
+                                     [r for _, r, _ in ranges], [n for _, _, n in ranges],
+                                     self.needles, self.lens, **self._kw())
+
+        return pm._joined(self.shards, self.n_real, words, list(by_card.items()),
+                          launch), range_base
+
+    def one_card(self) -> tuple:
+        """The single-device row cache's sparse call over ``full``."""
+        return pm.sharded_scan_segments(None, self.full, self.starts, self.needles, self.lens,
+                                        seg_chunks=self.counts, **self._kw())
+
     def dense(self) -> torch.Tensor:
         return pm.sharded_scan_all_rows(self.mesh, self.shards, self.needles, self.lens,
                                         **self._kw())
@@ -445,11 +497,13 @@ def sparse_case(mesh, stream: tuple, full: torch.Tensor, rng: np.random.Generato
 
 
 def check_sparse(case: SparseCase) -> list[np.ndarray]:
-    """The sparse call, the dense sharded call and the single-device call
-    agree at every requested chunk -> the requested bits."""
+    """The five sparse forms agree at every requested chunk -> the
+    requested bits."""
     words, bases = case.sharded()
     got = requested_bits(words, bases, case.counts)
-    for label, other in (("dense sharded", requested_bits(case.dense(), case.starts,
+    for label, other in (("per-launch", requested_bits(*case.per_launch(), case.counts)),
+                         ("one-card", requested_bits(*case.one_card(), case.counts)),
+                         ("dense sharded", requested_bits(case.dense(), case.starts,
                                                            case.counts)),
                          ("single-device", requested_bits(case.single(), case.single_bases(),
                                                           case.counts))):
@@ -458,19 +512,48 @@ def check_sparse(case: SparseCase) -> list[np.ndarray]:
     return got
 
 
+def plan_split_us(case: SparseCase, reps: int = 200) -> dict:
+    """Median host-clock us of the package's sparse call split into its
+    steps, from the monotonic clock around them and the two stamps the C
+    entry takes: building the records, entering the foreign call (ctypes),
+    issuing every launch and event inside it, and waiting for the cards
+    until it returns."""
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    plan, words, _ = pm.segment_plan(case.shards, case.starts, case.counts)
+    needle_bytes, real_lens = ks._check(case.shards[0], case.needles, case.lens, case.n_real,
+                                        case.max_words)
+    out = torch.empty((case.n_real, words), dtype=torch.int32, pin_memory=True)
+    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devices}
+    stamps = (ctypes.c_int64 * 2)()
+    samples: dict = {"plan: records": [], "plan: entering the foreign call": [],
+                     "plan: issue in the call": [], "plan: wait in the call": []}
+    for rep in range(reps + 1):
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.monotonic_ns()
+        records = ks.plan_records(plan, streams)
+        t1 = time.monotonic_ns()
+        ks.plan_call(needle_bytes, real_lens, records, out, stamps)
+        t2 = time.monotonic_ns()
+        if rep:  # the first call is a warm-up
+            for name, ns in zip(samples, (t1 - t0, stamps[0] - t1, stamps[1] - stamps[0],
+                                          t2 - stamps[1])):
+                samples[name].append(ns / 1e3)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
 def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
     """Median host-clock us of each step of one sparse call (``host_costs``'
     rule: a launch is its issue alone; a step with a wait includes the
-    card's turnaround) beside the whole calls."""
+    card's turnaround) beside the whole calls: the per-launch form's steps,
+    the package's call split (``plan_split_us``) and each form's call."""
     devices = list(dict.fromkeys(s.device for s in case.shards))
     rows = case.shards[0].shape[0]
     pieces, _ = pm.segment_pieces(case.starts, case.counts, rows, len(case.shards))
-    plan = pm.piece_launches(pieces, [s.device for s in case.shards], ks.MAX_SEGMENTS)
-    words = sum(n for _, _, n in pieces) // 32
+    plan, words, _ = pm.segment_plan(case.shards, case.starts, case.counts)
     pinned = torch.empty((case.n_real, words), dtype=torch.int32, pin_memory=True)
-    dev, launches = plan[0]
-    first, idx = launches[0]
-    part = [pieces[i] for i in idx]
+    first, ranges = plan[0]
+    dev = ranges[0][0].device
 
     def us(fn) -> float:
         fn()
@@ -486,8 +569,8 @@ def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
         return statistics.median(times)
 
     def launch():
-        ks.byte_scan_ranges_into(pinned, first, [case.shards[i] for i, _, _ in part],
-                                 [r for _, r, _ in part], [n for _, _, n in part],
+        ks.byte_scan_ranges_into(pinned, first, [b for b, _, _ in ranges],
+                                 [r for _, r, _ in ranges], [n for _, _, n in ranges],
                                  case.needles, case.lens, n_real=case.n_real,
                                  max_words=case.max_words)
 
@@ -496,24 +579,27 @@ def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
                                                     len(case.shards)),
         "piece_launches": lambda: pm.piece_launches(pieces, [s.device for s in case.shards],
                                                     ks.MAX_SEGMENTS),
+        "segment_plan": lambda: pm.segment_plan(case.shards, case.starts, case.counts),
         "pinned buffer": lambda: torch.empty((case.n_real, words), dtype=torch.int32,
                                              pin_memory=True),
         "needles check": lambda: ks._check(case.shards[0], case.needles, case.lens,
                                            case.n_real, case.max_words),
-        "a card's launch into the pinned buffer": launch,
-        "a card's launch, event wait": lambda: (
+        "per_launch: a card's launch into the pinned buffer": launch,
+        "per_launch: a card's launch, event wait": lambda: (
             launch(), torch.cuda.current_stream(dev).record_event().synchronize()),
-        "sharded_scan_segments": case.sharded,
-        "single-device segment call and copy": case.single,
-        "sharded_scan_all_rows": case.dense,
     }
-    return {name: us(fn) for name, fn in steps.items()}
+    result = {name: us(fn) for name, fn in steps.items()}
+    result.update(plan_split_us(case, reps))
+    calls = {"sparse": case.sharded, "per_launch": case.per_launch, "one_card": case.one_card,
+             "single": case.single, "dense": case.dense}
+    result.update({f"call: {name}": us(fn) for name, fn in calls.items()})
+    return result
 
 
 def sparse_turns(case: SparseCase, reps: int = 25, log=log) -> dict:
-    """The sparse case (module doc): checked, timed in turns against the
-    dense sharded call and the single-device call, with the launches one
-    sparse call makes a card and ``host_us``."""
+    """The sparse case (module doc): the five forms checked against one
+    another, timed in turns (``SPARSE_FORMS`` and back), with the kernel
+    launches one package call makes, the launches a card and ``host_us``."""
     devices = list(dict.fromkeys(s.device for s in case.shards))
     check_sparse(case)
     before = launch_counts()
@@ -523,9 +609,10 @@ def sparse_turns(case: SparseCase, reps: int = 25, log=log) -> dict:
     pieces, _ = pm.segment_pieces(case.starts, case.counts, case.shards[0].shape[0],
                                   len(case.shards))
     plan = pm.piece_launches(pieces, [s.device for s in case.shards], ks.MAX_SEGMENTS)
-    calls = {"dense": case.dense, "sparse": case.sharded, "single": case.single}
-    times: dict = {name: [] for name in calls}
-    for name in ("dense", "sparse", "single", "single", "sparse", "dense"):
+    calls = {"per_launch": case.per_launch, "sparse": case.sharded, "one_card": case.one_card,
+             "single": case.single, "dense": case.dense}
+    times: dict = {name: [] for name in SPARSE_FORMS}
+    for name in SPARSE_FORMS + SPARSE_FORMS[::-1]:
         times[name].append(call_ms(calls[name], devices, reps))
     result = {"call_ms": times, "kernel_launches_per_call": launched, "pieces": len(pieces),
               "launches_per_card": {str(d): len(ls) for d, ls in plan},
@@ -546,10 +633,10 @@ def launch_counts() -> dict:
 
 
 def turns(case: Case, copy_lib, reps: int = 25, log=log) -> dict:
-    """The three forms of one case: bit-identical to one another (and to
-    to the earlier per-shard form), each timed as a caller sees it in turns (old, mapped,
-    copy, copy, mapped, old), each one's median breakdown, and the kernel
-    launches one wrapper call makes."""
+    """The forms of one case: bit-identical to the earlier per-shard form,
+    each timed as a caller sees it in turns (``FORMS`` and back), the
+    median breakdown of each traced form, and the kernel launches one
+    wrapper call makes."""
     devices = list(dict.fromkeys(s.device for s in case.shards))
     want = old_call(case)
     for form in FORMS[1:]:
@@ -563,7 +650,7 @@ def turns(case: Case, copy_lib, reps: int = 25, log=log) -> dict:
     for form in FORMS + FORMS[::-1]:
         times[form].append(call_ms(form_call(case, form, copy_lib), devices, reps))
     parts = {}
-    for form in FORMS:
+    for form in TRACED_FORMS:
         breakdown(case, form, copy_lib)
         parts[form] = median_breakdown([breakdown(case, form, copy_lib) for _ in range(reps)])
     layout = pm.card_layout(case.shards, case.axis, case.capacity)
@@ -624,8 +711,7 @@ def host_costs(mesh, bank: tuple, stream: tuple, reps: int = 200) -> dict:
         pk.probe_shards_into(pinned, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
 
     def scan_pinned_launch():
-        ks.byte_scan_shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1,
-                                 max_words=9)
+        shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1, max_words=9)
 
     steps = {
         "pinned buffer": lambda: torch.empty((1, words), dtype=torch.int32, pin_memory=True),

@@ -45,11 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. serving engine: the same dataset in serving mode (the row stream pinned
    on the card, a restart sidecar in a temporary directory), the same
    queries checked against the host-probe engine, the scan counters reset
-   before it; every segment launch checked to read just the requested
-   block ranges with real needles only; then the scan kernel against its
-   plain version on the resident stream at every shape the engine
-   launched (a segment launch timed after an L2 flush, its bound counted
-   on the chunks the query asked for), dense at 1, 2, 4 and 8 of the
+   before it; every segment launch (the sparse scan's one plan call on the
+   one stream tensor) checked to read just the requested block ranges
+   with real needles only; then the scan kernel against its plain version
+   on the resident stream at every shape the engine launched (a segment
+   launch timed after an L2 flush, its bound counted on the chunks the
+   query asked for), the most launched segment launch timed in turns
+   against the same ranges with its first needle alone and against a
+   one-tile launch (``segment_needle_turns``: needle issue or a fixed
+   cost), dense at 1, 2, 4 and 8 of the
    engine's needles, with ``--old-scan`` an earlier scan kernel against
    this one in turns (``turns_against_old_scan``), and a restarted engine
    that loads every block from the sidecar and times every shape (needle
@@ -60,20 +64,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries' probe arrays and scan needles driven through the four dense
    sharded wrappers, each result bit-identical to the unsharded kernel on
    the same logical content and to the plain version; then each wrapper
-   at its main-path shape in three forms timed in turns as a caller sees
-   them (``tools/exp_mesh_join.py``: the package's one launch a card into
-   the page-locked joined bitmap, the earlier launch, copy and host join a
-   shard, and a device buffer with one strided copy a launch), each form's
-   breakdown (issue, each card's launch spans, copies, wait, join) and the
+   at its main-path shape in four forms timed in turns as a caller sees
+   them (``tools/exp_mesh_join.py``: the package's wrapper, one launch a
+   card into the page-locked joined bitmap, for the dense scan all of them
+   issued and waited for in one foreign call; the same launches each its
+   own foreign call; the earlier launch, copy and host join a shard; and a
+   device buffer with one strided copy a launch), the breakdown of each
+   form the host issues launch by launch (issue, each card's launch spans,
+   copies, wait, join) and the
    kernel launches one sharded call makes, beside the single-device
    call and device times of the unsharded launch and of one launch over a
-   card's shards; the sparse sharded scan (``sharded_scan_segments``) at
-   every segment launch phase 7 recorded, at a range across a shard
-   boundary and at one ending at the stream's end, each bit-identical at
-   every requested chunk to the unsharded segment launch and the plain
-   version, and phase 7's most launched segment shape timed in turns as a
-   caller sees it beside the dense sharded call and the single-device
-   segment call, with its bound on the busiest card; (b) the main path:
+   card's shards; the sparse sharded scan (``sharded_scan_segments``, one
+   plan call issuing every card's launches) and the single-device sparse
+   call on the joined stream at every segment launch phase 7 recorded, at
+   a range across a shard boundary and at one ending at the stream's end,
+   each bit-identical at every requested chunk to the unsharded segment
+   launch and the plain version, and phase 7's most launched segment shape
+   timed in turns as a caller sees it (``tools/exp_mesh_join.
+   sparse_turns``: the earlier per-launch form, the plan, the
+   single-device sparse call, the earlier single-device segment call and
+   copy, the dense sharded call; ``host_us`` splits the plan call into
+   record building, the foreign call's issue and its wait), with its
+   bound on the busiest card; (b) the main path:
    the serving engine restarted from phase 7's sidecar over a mesh (every
    card with its default ``mesh_devices=None`` when two or more are
    visible, else the four shards on cuda:0), every query shape and 16
@@ -1088,20 +1100,23 @@ def phase_engine(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
 
 
 class ScanRecorder:
-    """Wraps the row cache's two scan wrappers to keep, for each launch
-    shape (the key of ``kernels.scan.launch_shapes()``), the arguments of
-    its first launch (the first with a real needle, when one comes), so the
-    shape can be re-checked on the resident stream with the engine's own
-    needles and ranges; every distinct set of real needles the engine
-    scanned for (``needle_sets``); and every segment launch's requested
-    ranges and needle lengths (``segment_launches``)."""
+    """Wraps the one-card row cache's two scan calls (``byte_scan_stream``
+    and the sparse scan, ``sharded_scan_segments`` with no mesh: one
+    segment launch) to keep, for each launch shape (the key of
+    ``kernels.scan.launch_shapes()``), the arguments of its first launch
+    (the first with a real needle, when one comes), so the shape can be
+    re-checked on the resident stream with the engine's own needles and
+    ranges; every distinct set of real needles the engine scanned for
+    (``needle_sets``); and every segment launch's requested ranges and
+    needle lengths (``segment_launches``)."""
 
     def __init__(self):
         import bloomsearch_tpu_torch.rowcache as rc
         from bloomsearch_tpu_torch.kernels import scan as ks
 
         self.rc, self.ks = rc, ks
-        self.orig = {name: getattr(rc, name) for name in SCAN_MODES}
+        self.orig = {name: getattr(rc, name) for name in ("byte_scan_stream",
+                                                           "sharded_scan_segments")}
         self.args: dict[tuple, dict] = {}
         self.needle_sets: dict[bytes, dict] = {}
         self.segment_launches: list[tuple] = []
@@ -1128,9 +1143,13 @@ class ScanRecorder:
                        needles=needles, lens=lens, n_real=n_real, max_words=max_words)
             return out
 
-        def segments(rows32, seg_starts, needles, lens, *, n_real, max_words, seg_chunks):
-            out = orig["byte_scan_segments"](rows32, seg_starts, needles, lens, n_real=n_real,
-                                             max_words=max_words, seg_chunks=seg_chunks)
+        def segments(mesh, rows32, seg_starts, needles, lens, *, n_real, max_words,
+                     seg_chunks):
+            out = orig["sharded_scan_segments"](mesh, rows32, seg_starts, needles, lens,
+                                                n_real=n_real, max_words=max_words,
+                                                seg_chunks=seg_chunks)
+            if mesh is not None:
+                raise AssertionError("the one-card serving engine made a sharded scan")
             _, counts = self.ks.segment_layout(seg_starts, seg_chunks, rows32.shape[0])
             key = ("segments", sum(counts), n_real, len(counts), tuple(counts), max_words)
             starts = [int(v) for v in seg_starts]
@@ -1143,7 +1162,7 @@ class ScanRecorder:
                     tuple(int(v) for v in np.asarray(lens)[:n_real])))
             return out
 
-        self.rc.byte_scan_stream, self.rc.byte_scan_segments = stream, segments
+        self.rc.byte_scan_stream, self.rc.sharded_scan_segments = stream, segments
         return self
 
     def __exit__(self, *exc):
@@ -1199,6 +1218,45 @@ def check_segment_launches(launches: list[tuple], segments: dict) -> None:
             raise AssertionError(f"a segment launch with padding rows: lengths {lens}")
     log(f"serving: {len(launches)} query segment launches, each over requested block "
         f"ranges only, real needles only")
+
+
+def segment_needle_turns(ks, matrix: torch.Tensor, args: dict, reps: int = 25) -> dict:
+    """The main path's most launched segment launch (``args``: its ranges
+    and n_real real needles) timed in turns after an L2 flush against the
+    same ranges with its first needle alone and against the least launch
+    (one tile of 32 chunks, one needle): (n, 1, tile, tile, 1, n). If the
+    n-needle launch's time is its needles' issue, one needle takes a
+    fraction of it; if it is the launch's fixed cost (the ring filling
+    before a few tiles a block), one needle takes nearly as long and the
+    one-tile launch sets the floor. Each bit-identical to the plain
+    version."""
+    starts, counts, n_real = args["starts"], args["seg_chunks"], args["n_real"]
+    forms = {f"n_real={n_real}": (starts, counts, n_real), "n_real=1": (starts, counts, 1),
+             "one tile, n_real=1": ([starts[0]], [32], 1)}
+    calls, bounds = {}, {}
+    for name, (st, ct, n) in forms.items():
+        padded, lens = args["needles"][:n], args["lens"][:n]
+
+        def call(i, st=st, ct=ct, n=n, padded=padded, lens=lens):
+            return ks.byte_scan_segments(matrix, st, padded, lens, n_real=n,
+                                         max_words=args["max_words"], seg_chunks=ct)
+
+        got = call(0)
+        if not torch.equal(got, plain_scan(ks, matrix, padded, lens, n, st, ct)):
+            raise AssertionError(f"segment turns {name}: kernel disagrees with plain version")
+        calls[name] = call
+        bounds[name] = scan_bound(sum(ct), [int(v) for v in lens[:n]], popcounts(got))
+    order = list(forms) + list(forms)[::-1]
+    ms: dict = {name: [] for name in forms}
+    for name in order:
+        ms[name].append(event_ms(calls[name], reps, hide_host=True,
+                                 before=lambda: flush_l2(matrix.device)))
+    result = {name: {"ms": ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "chunks": sum(forms[name][1])} for name in forms}
+    log("segment turns (ms, in turns; bound): " + "; ".join(
+        f"{name} {v['ms'][0]:.6f}/{v['ms'][1]:.6f} ({v['bound_ms']:.6f}, {v['chunks']} chunks)"
+        for name, v in result.items()))
+    return result
 
 
 def engine_needles(needle_sets: list[dict]) -> list[bytes]:
@@ -1397,6 +1455,8 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
             segments = dict(engine._row_cache._bucket.segments)
         check_segment_launches(recorder.segment_launches[warmup_segments:], segments)
         out["scan_cases"] = recheck_scans(ks, matrix, launched, recorder.args)
+        out["segment_needle_turns"] = segment_needle_turns(
+            ks, matrix, out["scan_cases"]["segments"]["args"])
         real = engine_needles(list(recorder.needle_sets.values()))
         out["dense_sweep"] = dense_sweep(ks, matrix, real)
         if old_scan is not None:
@@ -1734,6 +1794,8 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
         kw = dict(n_real=args["n_real"], max_words=args["max_words"])
         got, base = pm.sharded_scan_segments(mesh, stream, starts, args["needles"], args["lens"],
                                              seg_chunks=counts, **kw)
+        one, one_base = pm.sharded_scan_segments(None, flat, starts, args["needles"],
+                                                 args["lens"], seg_chunks=counts, **kw)
         single = ks.byte_scan_segments(flat, starts, args["needles"], args["lens"],
                                        seg_chunks=counts, **kw).cpu()
         plain = plain_scan(ks, flat, args["needles"], args["lens"], args["n_real"], starts,
@@ -1741,6 +1803,9 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
         read, rounded = ks.segment_layout(starts, counts, total)
         single_base = [int(o) + st - r for o, st, r in zip(np.cumsum([0] + rounded[:-1]), starts,
                                                              read)]
+        if one_base != single_base or not torch.equal(one, single):
+            raise AssertionError(f"the single-device sparse call over "
+                                 f"{list(zip(starts, counts))} differs from the segment launch")
         mine = mj.requested_bits(got, base, counts)
         for label, other in (("unsharded segment launch", single), ("plain version", plain)):
             theirs = mj.requested_bits(other, single_base, counts)
@@ -1751,7 +1816,7 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
         log(f"mesh: sharded_scan_segments over {list(zip(starts, counts))} (n_real "
             f"{args['n_real']}): {len(pieces)} pieces on shards {[i for i, _, _ in pieces]}, "
             f"bit-identical to the unsharded segment launch and the plain version at every "
-            f"requested chunk")
+            f"requested chunk; the single-device sparse call equal to the segment launch")
     del flat
 
     starts, counts = top["starts"], top["seg_chunks"]
@@ -1766,6 +1831,8 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
     entry = {
         "ms": statistics.mean(turns["call_ms"]["sparse"]),
         "sparse_ms": turns["call_ms"]["sparse"], "dense_call_ms": turns["call_ms"]["dense"],
+        "per_launch_ms": turns["call_ms"]["per_launch"],
+        "one_card_call_ms": turns["call_ms"]["one_card"],
         "single_device_call_ms": turns["call_ms"]["single"],
         "plain_ms": event_ms(lambda i: plain_scan(ks, matrix, top["needles"], top["lens"],
                                                   top["n_real"], starts, counts),
@@ -1783,7 +1850,7 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
 
 def time_mesh_case(label: str, form, copy_lib, unsharded_call, kernel, full, plain, bound,
                    reps: int, plain_reps: int = 3) -> dict:
-    """Times of one K3 wrapper at one shape (phase 8): the three forms in
+    """Times of one K3 wrapper at one shape (phase 8): the four forms in
     turns with their breakdowns (``tools/exp_mesh_join.turns``; ``ms`` is
     the package's form, the mean of its two turns), the single-device
     engine's call (``unsharded_call``, CUDA events around it), and device
@@ -1803,7 +1870,7 @@ def time_mesh_case(label: str, form, copy_lib, unsharded_call, kernel, full, pla
     case = {
         "ms": statistics.mean(turns["call_ms"]["mapped"]),
         "old_ms": turns["call_ms"]["old"], "copy_landing_ms": turns["call_ms"]["copy"],
-        "mapped_ms": turns["call_ms"]["mapped"],
+        "mapped_ms": turns["call_ms"]["mapped"], "per_launch_ms": turns["call_ms"]["per_launch"],
         "unsharded_call_ms": event_ms(unsharded_call, reps, hide_host=False),
         "card_launch_ms": card_launch_ms, "card_launch_shards": len(run),
         "unsharded_ms": event_ms(lambda i: kernel(full), reps, hide_host=True),
@@ -1957,12 +2024,12 @@ def engine_over_mesh(bt, pm, ks, mesh, n_cards: int, resident: dict, reps: int =
 class SparseCallRecorder:
     """Records each ``sharded_scan_segments`` call the row cache makes: its
     requested ranges, its stream's shard rows and the device of each
-    launch it made (the launches of a thread's current call)."""
+    launch its plan made (the plan calls of a thread's current call)."""
 
     def __init__(self, pm, rc_mod):
         self.pm, self.rc = pm, rc_mod
         self.orig_call = rc_mod.sharded_scan_segments
-        self.orig_launch = pm.byte_scan_ranges_into
+        self.orig_launch = pm.byte_scan_plan_into
         self.calls: list = []
         self.local = threading.local()
         self.lock = threading.Lock()
@@ -1978,17 +2045,17 @@ class SparseCallRecorder:
                                        self.local.launched))
                 self.local.launched = None
 
-        def launch(out, first_word, bases, *a, **kw):
-            self.orig_launch(out, first_word, bases, *a, **kw)
+        def launch(out, plan, *a, **kw):
+            self.orig_launch(out, plan, *a, **kw)
             if getattr(self.local, "launched", None) is not None:
-                self.local.launched.append(bases[0].device)
+                self.local.launched.extend(ranges[0][0].device for _, ranges in plan)
 
-        self.rc.sharded_scan_segments, self.pm.byte_scan_ranges_into = call, launch
+        self.rc.sharded_scan_segments, self.pm.byte_scan_plan_into = call, launch
         return self
 
     def __exit__(self, *exc):
         self.rc.sharded_scan_segments = self.orig_call
-        self.pm.byte_scan_ranges_into = self.orig_launch
+        self.pm.byte_scan_plan_into = self.orig_launch
 
 
 # -- phase 9: the tools ---------------------------------------------------------
@@ -2243,7 +2310,8 @@ def main(argv=None) -> int:
             "bound_by": case["bound_by"], "library_ms": None, "shards": MESH_SHARDS,
             **{k: case[k] for k in ("old_ms", "mapped_ms", "copy_landing_ms", "unsharded_ms",
                                     "unsharded_call_ms", "card_launch_ms", "sparse_ms",
-                                    "dense_call_ms", "single_device_call_ms", "pieces",
+                                    "dense_call_ms", "per_launch_ms", "one_card_call_ms",
+                                    "single_device_call_ms", "pieces",
                                     "launches_per_card", "cards", "kernel_launches_per_call")
                if k in case},
         })

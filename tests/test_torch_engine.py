@@ -312,8 +312,9 @@ def test_serving_engines_scan_on_the_device(serving):
 
 def test_serving_sparse_and_dense_launches_match_reference(tmp_path, monkeypatch):
     """A stream large enough for the segment mode: needle queries over 1-3
-    blocks launch segments, a common token launches the dense scan, and
-    both return the JAX serving engine's rows."""
+    blocks launch segments (the sparse scan's one call, on the one stream
+    tensor), a common token launches the dense scan, and both return the
+    JAX serving engine's rows."""
     import bloomsearch_tpu_torch.rowcache as rc
 
     rows = [
@@ -331,7 +332,7 @@ def test_serving_sparse_and_dense_launches_match_reference(tmp_path, monkeypatch
         finally:
             engine.stop(timeout=TIMEOUT)
     modes = []
-    for fn in ("byte_scan_stream", "byte_scan_segments"):
+    for fn in ("byte_scan_stream", "sharded_scan_segments"):
         orig = getattr(rc, fn)
         monkeypatch.setattr(
             rc, fn, lambda *a, _orig=orig, _fn=fn, **k: modes.append(_fn) or _orig(*a, **k)
@@ -357,7 +358,7 @@ def test_serving_sparse_and_dense_launches_match_reference(tmp_path, monkeypatch
             got = multiset(port.query_sync(make(bt), timeout=TIMEOUT))
             assert got == multiset(ref.query_sync(make(bs), timeout=TIMEOUT)), qname
             assert got, qname
-            assert modes == (["byte_scan_stream"] if qname == "common" else ["byte_scan_segments"]), (qname, modes)
+            assert modes == (["byte_scan_stream"] if qname == "common" else ["sharded_scan_segments"]), (qname, modes)
     finally:
         ref.stop(timeout=TIMEOUT)
         port.stop(timeout=TIMEOUT)
@@ -432,7 +433,7 @@ def test_scan_kernel_failure_fails_the_query(tmp_path, monkeypatch):
         assert engine.query_sync(query, timeout=TIMEOUT)
         engine._row_cache.needle_cache_enabled = False
         monkeypatch.setattr(rc, "byte_scan_stream", _failing)
-        monkeypatch.setattr(rc, "byte_scan_segments", _failing)
+        monkeypatch.setattr(rc, "sharded_scan_segments", _failing)
         with pytest.raises(KernelFailure):
             engine.query_sync(query, timeout=TIMEOUT)
     finally:

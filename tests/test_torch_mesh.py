@@ -729,17 +729,18 @@ def test_sharded_segments_match_unsharded_segments_and_reference(n, monkeypatch)
     trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
     starts, counts = segment_ranges(n)
     launched = []
-    orig = pm.byte_scan_ranges_into
-    monkeypatch.setattr(pm, "byte_scan_ranges_into", lambda out, first, bases, st, ct, *a, **kw: (
-        launched.append((first, [b.data_ptr() for b in bases], list(st), list(ct)))
-        or orig(out, first, bases, st, ct, *a, **kw)))
+    orig = pm.byte_scan_plan_into
+    monkeypatch.setattr(pm, "byte_scan_plan_into", lambda out, plan, *a, **kw: (
+        launched.extend((first, [(b.data_ptr(), s, c) for b, s, c in ranges])
+                        for first, ranges in plan)
+        or orig(out, plan, *a, **kw)))
     got, base = pm.sharded_scan_segments(tmesh, trows, starts, padded, lens, n_real=4,
                                          max_words=9, seg_chunks=counts)
     pieces, want_base = pm.segment_pieces(starts, counts, 512, n)
     assert base == want_base and got.shape == (4, sum(p[2] for p in pieces) // 32)
-    # One launch a run of up to 4 pieces, reading exactly the pieces.
+    # One launch a run of up to 4 pieces (all in one plan), reading exactly the pieces.
     assert len(launched) == -(-len(pieces) // ks.MAX_SEGMENTS)
-    read = [(ptr, s, c) for _, ptrs, st, ct in launched for ptr, s, c in zip(ptrs, st, ct)]
+    read = [r for _, ranges in launched for r in ranges]
     assert read == [(trows[i].data_ptr(), r, c) for i, r, c in pieces]
     flat = torch.from_numpy(rows32.copy())
     single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=4, max_words=9,
@@ -811,3 +812,121 @@ def test_ranges_into_a_wide_output_keep_other_words():
         with pytest.raises(ValueError):
             ks.byte_scan_ranges_into(out, 0, [bases[0]] * len(st), st, ct, padded, lens,
                                      n_real=2, max_words=2)
+
+
+def plan_spy(monkeypatch) -> list:
+    """Record each ``byte_scan_plan_into`` call's plan and count_as."""
+    calls = []
+    orig = pm.byte_scan_plan_into
+
+    def spy(out, plan, *a, count_as="segments", **kw):
+        calls.append((plan, count_as))
+        return orig(out, plan, *a, count_as=count_as, **kw)
+
+    monkeypatch.setattr(pm, "byte_scan_plan_into", spy)
+    return calls
+
+
+def record_fields(rec) -> tuple:
+    n = rec.n_ranges
+    return (rec.device, n, rec.stream, list(rec.base[:n]), list(rec.start[:n]),
+            list(rec.chunks[:n]), rec.rows_total, rec.first_word)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 10])
+def test_sparse_plan_records_follow_the_pieces(n, monkeypatch):
+    """The one call of ``sharded_scan_segments`` on n CPU shards (one: the
+    single-device row cache's stream tensor, no mesh), ranges across
+    boundaries included: its plan is ``piece_launches``' launches of
+    ``segment_pieces``' pieces in order, and the C records built from it
+    (``plan_records``) hold each piece's base pointer, first row and rows,
+    the shard's rows, the launch's first word and the stream."""
+    shard_rows = 512
+    tmesh = pm.default_mesh(n, "cpu") if n > 1 else None
+    stream = pm.sharded_zeros_rows(tmesh, shard_rows * n)
+    shards = stream if n > 1 else (stream,)
+    starts, counts = segment_ranges(n) if n > 1 else ([5, 300], [40, 212])
+    needle = np.zeros((2, ks.MAX_SCAN_WINDOW), np.int32)
+    calls = plan_spy(monkeypatch)
+    out, base = pm.sharded_scan_segments(tmesh, stream, starts, needle, np.ones(2, np.int32),
+                                         n_real=2, max_words=2, seg_chunks=counts)
+    pieces, want_base = pm.segment_pieces(starts, counts, shard_rows, n)
+    launches = [l for _, ls in pm.piece_launches(pieces, [s.device for s in shards],
+                                                 ks.MAX_SEGMENTS) for l in ls]
+    assert base == want_base and len(calls) == 1
+    plan, count_as = calls[0]
+    assert count_as == "segments" and len(plan) == len(launches)
+    if n == 1:
+        read, rounded = ks.segment_layout(starts, counts, shard_rows)
+        assert [(r, c) for _, ranges in plan for _, r, c in ranges] == list(zip(read, rounded))
+    records = ks.plan_records(plan, {torch.device("cpu"): 7})
+    for rec, (first, ranges), (word, idx) in zip(records, plan, launches):
+        assert first == word
+        assert [(b.data_ptr(), r, c) for b, r, c in ranges] == [
+            (shards[pieces[i][0]].data_ptr(), pieces[i][1], pieces[i][2]) for i in idx]
+        assert record_fields(rec) == (
+            -1, len(idx), 7, [shards[pieces[i][0]].data_ptr() for i in idx],
+            [pieces[i][1] for i in idx], [pieces[i][2] for i in idx], shard_rows, word)
+    assert out.shape == (2, sum(c for _, _, c in pieces) // 32) and out.all()  # 0-byte needles
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 10])
+def test_dense_plan_records_follow_the_card_layout(n, monkeypatch):
+    """``sharded_scan_all_rows`` hands ``card_layout``'s launches (whole
+    shards, up to 4 a launch) to one plan call counted as dense launches;
+    the records hold every shard whole at its word offset."""
+    shard_rows = 512
+    tmesh = pm.default_mesh(n, "cpu")
+    stream = pm.sharded_zeros_rows(tmesh, shard_rows * n) if n > 1 else (
+        pm.sharded_zeros_rows(None, shard_rows),)
+    needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
+    calls = plan_spy(monkeypatch)
+    out = pm.sharded_scan_all_rows(tmesh, stream, needle, np.ones(1, np.int32), n_real=1,
+                                   max_words=2)
+    assert out.shape == (1, shard_rows * n // 32) and out.all()
+    (plan, count_as), = calls
+    runs = [run for card in pm.card_layout(stream, 0, ks.MAX_SEGMENTS) for run in card.launches]
+    assert count_as == "stream" and len(plan) == len(runs) == -(-n // ks.MAX_SEGMENTS)
+    for rec, run in zip(ks.plan_records(plan, {torch.device("cpu"): None}), runs):
+        assert record_fields(rec) == (-1, len(run), None, [stream[i].data_ptr() for i in run],
+                                      [0] * len(run), [shard_rows] * len(run), shard_rows,
+                                      run[0] * shard_rows // 32)
+
+
+def test_joined_waits_for_every_card_before_a_launch_failure_is_raised(monkeypatch):
+    """A probe wrapper's launch that raises on the second card of two:
+    ``_joined`` waits for the first card (and the second, which may have
+    queued launches before the failure) before the error reaches the
+    caller, so no kernel is left writing a buffer the allocator may hand
+    out again."""
+    events = []
+
+    class Event:
+        def __init__(self, device):
+            self.device = device
+
+        def synchronize(self):
+            events.append(("waited", self.device))
+
+    def card_done(device):
+        events.append(("recorded", device))
+        return Event(device)
+
+    def launch(out, first_word, arg):
+        events.append(("launched", arg))
+        if arg == "b1":
+            raise RuntimeError("probe kernel launch failed: cudaError 700")
+
+    monkeypatch.setattr(pm, "_card_done", card_done)
+    shards = (torch.zeros((4, 128), dtype=torch.int32),) * 2
+    plan = [("card 0", [(0, "a0"), (2, "a1")]), ("card 1", [(4, "b0"), (5, "b1"), (6, "b2")])]
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        pm._joined(shards, 1, 8, plan, launch)
+    assert events == [("launched", "a0"), ("launched", "a1"), ("recorded", "card 0"),
+                      ("launched", "b0"), ("launched", "b1"), ("recorded", "card 1"),
+                      ("waited", "card 0"), ("waited", "card 1")]
+    # Without a failure: every launch, then one wait a card.
+    events.clear()
+    pm._joined(shards, 1, 8, plan[:1], launch)
+    assert events == [("launched", "a0"), ("launched", "a1"), ("recorded", "card 0"),
+                      ("waited", "card 0")]

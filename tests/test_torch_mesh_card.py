@@ -211,8 +211,8 @@ def test_pageable_output_is_refused(dev):
     stream = torch.zeros((64, 128), dtype=torch.int32, device=dev)
     needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
     with pytest.raises(RuntimeError, match="cudaError"):
-        ks.byte_scan_shards_into(torch.zeros((1, 2), dtype=torch.int32), 0, [stream], needle,
-                                 np.ones(1, np.int32), n_real=1, max_words=9)
+        ks.byte_scan_plan_into(torch.zeros((1, 2), dtype=torch.int32), [(0, [(stream, 0, 64)])],
+                               needle, np.ones(1, np.int32), n_real=1, max_words=9)
     assert sum(pk.launch_counts().values()) == 0
     # The same outputs page-locked: the launches run and write every word.
     pinned = torch.full((T, 4), -7, dtype=torch.int32).pin_memory()

@@ -434,12 +434,16 @@ class TestSparseSegmentScan:
 
     def test_sparse_launch_reads_only_the_requested_ranges(self, monkeypatch):
         """A sparse launch takes each requested range as it is (rounded up
-        to 32 chunks by the wrapper) and only the real needles; the choice
-        of sparse or dense per request is the JAX row cache's (a spy on its
-        ``_scan`` and ``_scan_segments``), and the candidate matrices equal
-        its own (``Pair``). On the CPU the wrappers count nothing, so the
-        spy counts each segment call as the wrapper does on the card."""
+        to 32 chunks and clamped into the stream, ``segment_layout``) and
+        only the real needles, as one launch of the sparse scan's plan on
+        the one stream tensor (``sharded_scan_segments`` with no mesh); the
+        choice of sparse or dense per request is the JAX row cache's (a spy
+        on its ``_scan`` and ``_scan_segments``), and the candidate matrices
+        equal its own (``Pair``). On the CPU the wrappers count nothing, so
+        the spy counts each launch of the plan as the wrapper does on the
+        card: the "segments" shape keys are the single-device launch's."""
         from bloomsearch_tpu_torch.kernels import scan as ks
+        from bloomsearch_tpu_torch.parallel import mesh as pm
 
         cache = Pair(1 << 30, needle_cache=False)
         blocks = {}
@@ -453,16 +457,25 @@ class TestSparseSegmentScan:
             orig = getattr(cache.ref, name)
             setattr(cache.ref, name,
                     lambda *a, _o=orig, _n=name, **k: modes["ref"].append(_n) or _o(*a, **k))
-        orig_stream, orig_segments = rc.byte_scan_stream, rc.byte_scan_segments
+        orig_stream, orig_sparse = rc.byte_scan_stream, rc.sharded_scan_segments
+        orig_plan = pm.byte_scan_plan_into
+        plans = []
 
-        def segments(rows32, seg_starts, needles, lens, *, n_real, max_words, seg_chunks):
+        def sparse(mesh, rows32, *a, **k):
+            assert mesh is None and isinstance(rows32, torch.Tensor)  # one device, one shard
             modes["port"].append("_scan_segments")
-            _, counts = ks.segment_layout(seg_starts, seg_chunks, rows32.shape[0])
-            ks._count("segments", sum(counts), n_real, counts, max_words)
-            return orig_segments(rows32, seg_starts, needles, lens, n_real=n_real,
-                                 max_words=max_words, seg_chunks=seg_chunks)
+            return orig_sparse(mesh, rows32, *a, **k)
 
-        monkeypatch.setattr(rc, "byte_scan_segments", segments)
+        def plan_into(out, plan, needles, lens, *, n_real, max_words, count_as="segments"):
+            plans.append([[(b.data_ptr(), s, c) for b, s, c in ranges] for _, ranges in plan])
+            for _, ranges in plan:
+                counts = [c for _, _, c in ranges]
+                ks._count(count_as, sum(counts), n_real, counts, max_words)
+            return orig_plan(out, plan, needles, lens, n_real=n_real, max_words=max_words,
+                             count_as=count_as)
+
+        monkeypatch.setattr(rc, "sharded_scan_segments", sparse)
+        monkeypatch.setattr(pm, "byte_scan_plan_into", plan_into)
         monkeypatch.setattr(
             rc, "byte_scan_stream",
             lambda *a, **k: modes["port"].append("_scan") or orig_stream(*a, **k))
@@ -473,12 +486,17 @@ class TestSparseSegmentScan:
             ks.reset_launch_counts()
             modes["ref"].clear()
             modes["port"].clear()
+            plans.clear()
             cache.scan_many([blocks[b] for b in picked], needles)
             assert modes["port"] == modes["ref"], picked
             seen += modes["port"]
             if modes["port"] == ["_scan_segments"]:
                 segs = sorted(cache.port._bucket.segments[blocks[b][1].key] for b in picked)
                 counts = tuple(-(-n // 32) * 32 for _, n in segs)
+                matrix = cache.port._bucket.matrix
+                read, rounded = ks.segment_layout([s for s, _ in segs], [n for _, n in segs],
+                                                  matrix.shape[0])
+                assert plans == [[[(matrix.data_ptr(), r, n) for r, n in zip(read, rounded)]]]
                 assert ks.launch_shapes() == {
                     ("segments", sum(counts), len(needles), len(segs), counts,
                      ks.scan_word_bucket(max(map(len, needles)))): 1
@@ -525,16 +543,12 @@ class TestSparseSegmentScan:
             monkeypatch.setattr(rc, name, lambda *a, _o=orig, _m=mode, **k: (
                 modes["port"].append(_m) or _o(*a, **k)))
         launched = []
-        orig_into = pm.byte_scan_ranges_into
-        monkeypatch.setattr(pm, "byte_scan_ranges_into", lambda out, w, bases, st, ct, *a, **k: (
-            launched.append([(b.data_ptr(), int(s), int(c)) for b, s, c in zip(bases, st, ct)])
-            or orig_into(out, w, bases, st, ct, *a, **k)))
-        orig_shards = pm.byte_scan_shards_into
-        monkeypatch.setattr(pm, "byte_scan_shards_into", lambda out, w, shards, *a, **k: (
-            launched.append([(m.data_ptr(), 0, m.shape[0]) for m in shards])
-            or orig_shards(out, w, shards, *a, **k)))
+        orig_plan = pm.byte_scan_plan_into
+        monkeypatch.setattr(pm, "byte_scan_plan_into", lambda out, plan, *a, **k: (
+            launched.extend([(b.data_ptr(), int(s), int(c)) for b, s, c in ranges]
+                            for _, ranges in plan)
+            or orig_plan(out, plan, *a, **k)))
         monkeypatch.setattr(rc, "byte_scan_stream", None)  # no single-device launch on a mesh
-        monkeypatch.setattr(rc, "byte_scan_segments", None)
         needles = [b"tok3_11 ", b"blk", b"absent", b"x"]
         seen, sparse_straddling = [], 0
         first = straddling[0]

@@ -317,3 +317,65 @@ def test_segment_layout_rejects_what_the_kernel_does_not_take(starts, counts):
     with pytest.raises(ValueError):
         ks.byte_scan_segments(rows, starts, padded, lens, n_real=1, max_words=2,
                               seg_chunks=counts)
+
+
+# csrc/scan.cu's PlanLaunch, field by field: (name, offset, size).
+PLAN_LAUNCH_LAYOUT = [("device", 0, 4), ("n_ranges", 4, 4), ("stream", 8, 8), ("base", 16, 32),
+                      ("start", 48, 32), ("chunks", 80, 32), ("rows_total", 112, 8),
+                      ("first_word", 120, 8)]
+
+
+def test_plan_record_mirror_has_the_c_layout():
+    """``PlanLaunch`` puts every field where the C record (and its
+    ``static_assert``) has it, 128 bytes in all: a record off by a field
+    would launch on the wrong pointers."""
+    import ctypes
+
+    got = [(name, getattr(ks.PlanLaunch, name).offset, getattr(ks.PlanLaunch, name).size)
+           for name, _ in ks.PlanLaunch._fields_]
+    assert got == PLAN_LAUNCH_LAYOUT
+    assert ctypes.sizeof(ks.PlanLaunch) == 128
+
+
+def test_plan_on_cpu_bases_fills_each_launch_slice():
+    """``byte_scan_plan_into`` on CPU tensors: each launch's ranges land one
+    after another from its first word, as the unsharded JAX scan over the
+    same chunks gives them; the words no launch covers keep what they
+    held."""
+    rng = np.random.default_rng(6)
+    chunks = rng.integers(0, 256, size=(3 * 128, ks.CHUNK_BYTES), dtype=np.uint8)
+    chunks[200, 479 : 479 + 3] = np.frombuffer(b"pl\xe9", np.uint8)
+    bases = [torch.from_numpy(chunks[i * 128 : (i + 1) * 128].view(np.int32).copy())
+             for i in range(3)]
+    padded, lens = pack_needles([b"pl\xe9", b"\x00\x01"], n_rows=2)
+    plan = [(1, [(bases[1], 32, 64), (bases[0], 0, 32)]), (6, [(bases[2], 96, 32)])]
+    out = torch.full((2, 9), 0x5A5A5A5A, dtype=torch.int32)
+    ks.reset_launch_counts()
+    ks.byte_scan_plan_into(out, plan, padded, lens, n_real=2, max_words=2)
+    assert ks.launch_counts() == {"stream": 0, "segments": 0}
+    logical = np.concatenate([chunks[128 + 32 : 128 + 96], chunks[0:32], chunks[352:384]])
+    want = jax_scan_all_bits(logical, padded, lens, 2)
+    bits = unpack(out[:, 1:5].numpy(), 2, 128)
+    np.testing.assert_array_equal(bits[:, :96], want[:, :96])
+    np.testing.assert_array_equal(unpack(out[:, 6:7].numpy(), 2, 32), want[:, 96:])
+    assert bits[0, 200 - 160]  # the needle planted at byte 479
+    assert (out[:, [0, 5, 7, 8]] == 0x5A5A5A5A).all()
+
+
+@pytest.mark.parametrize("bad", ["empty", "five ranges", "off the tile", "past the base",
+                                 "narrow output", "two shapes", "wrong rows"])
+def test_plan_refuses_what_the_kernel_does_not_take(bad):
+    base = torch.zeros((128, 128), dtype=torch.int32)
+    padded, lens = pack_needles([b"abc"], n_rows=1)
+    plan = {
+        "empty": [],
+        "five ranges": [(0, [(base, 0, 32)] * 5)],
+        "off the tile": [(0, [(base, 0, 48)])],
+        "past the base": [(0, [(base, 112, 32)])],
+        "narrow output": [(3, [(base, 0, 64)])],
+        "two shapes": [(0, [(base, 0, 32), (torch.zeros((64, 128), dtype=torch.int32), 0, 32)])],
+        "wrong rows": [(0, [(base, 0, 32)])],
+    }[bad]
+    out = torch.zeros((2 if bad == "wrong rows" else 1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ks.byte_scan_plan_into(out, plan, padded, lens, n_real=1, max_words=2)

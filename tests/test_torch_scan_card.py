@@ -3,9 +3,15 @@ plain version and a numpy bytes oracle. No JAX: this file runs where the
 JAX package cannot.
 
 Dense mode, segment mode, ``byte_scan_ranges_into`` (ranges of one card's
-shards into a wider output) and the sparse sharded scan
+shards into a wider output), the sparse sharded scan
 ``sharded_scan_segments`` (K3-e) on 4 and 10 shards of one card and on one
-shard a card where two or more cards are visible. Every case is exact: the
+shard a card where two or more cards are visible, and the one foreign call
+both sharded scans and the single-device sparse scan make
+(``byte_scan_plan_into``, ``csrc/scan.cu``'s ``bs_scan_plan``): at K3-e's
+and K3-d's main-path shapes against the unsharded kernels and the plain
+version, from a fresh thread, from two threads at once, with the caller's
+current device kept, a pageable output and a failure part-way through, and
+a record of the wrong size refused at bind. Every case is exact: the
 words equal the plain version's, and each needle's bits equal a byte
 search of each chunk's 480 payload starts. Matches are planted at bytes
 479 (a hit) and 480 (not one: the next chunk's payload) beside every
@@ -17,6 +23,7 @@ a machine with one, from the repository root:
 (``--noconftest``: the suite's conftest imports JAX to pin its platform.)
 """
 
+import ctypes
 import threading
 
 import numpy as np
@@ -239,14 +246,18 @@ def test_sharded_segments_match_the_unsharded_launch(dev, kind):
     assert hit > 0
 
 
-def test_a_fresh_thread_launches_the_sparse_sharded_scan(dev):
+@pytest.mark.parametrize("kind", ["4 shards on one card", "one stream tensor"])
+def test_a_fresh_thread_launches_the_sparse_sharded_scan(dev, kind):
     """The engine calls the wrapper from its worker threads: a thread with
-    no CUDA context yet gets the same words as the main thread."""
+    no CUDA context yet gets the same words as the main thread, on a mesh
+    and as the single-device row cache calls it (no mesh)."""
     mesh = mesh_of("4 shards on one card", dev)
     G = 4 * 512
     chunks = planted(G, 512, 9)
     stream = pm.sharded_update_rows(
         mesh, pm.sharded_zeros_rows(mesh, G, device=dev), chunks.view(np.int32), 0)
+    if kind == "one stream tensor":
+        mesh, stream = None, torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
     padded, lens = packed(3)
     starts, counts = sharded_ranges(4, 512)
 
@@ -261,3 +272,185 @@ def test_a_fresh_thread_launches_the_sparse_sharded_scan(dev):
     worker.join(timeout=120)
     assert not worker.is_alive() and len(got) == 1
     assert torch.equal(got[0][0], want[0]) and got[0][1] == want[1]
+
+
+# -- the plan entry (bs_scan_plan) ---------------------------------------------
+
+REFSCALE_SHARD = 900_096  # the refscale stream (3,600,384 chunks) over 4 shards
+BLOCK = 15_307  # chunks of a refscale block
+EIGHT = NEEDLES + [b"ab", b"\x00\x00", b"zq\x80"]
+
+
+def packed_of(needles: list) -> tuple[np.ndarray, np.ndarray]:
+    padded = np.zeros((len(needles), ks.MAX_SCAN_WINDOW), np.int32)
+    lens = np.zeros(len(needles), np.int32)
+    for r, nd in enumerate(needles):
+        padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[r] = len(nd)
+    return padded, lens
+
+
+def random_stream(devices, shard_rows: int, seed: int) -> tuple:
+    """Random stream shards, one on each of ``devices``, made on the card."""
+    gens = {d: torch.Generator(device=d).manual_seed(seed) for d in dict.fromkeys(devices)}
+    return tuple(torch.randint(-(2**31), 2**31, (shard_rows, 128), generator=gens[d], device=d,
+                               dtype=torch.int64).to(torch.int32) for d in devices)
+
+
+def main_path_ranges(shard_rows: int, n_shards: int) -> list[int]:
+    """Three ranges of a block: across the first boundary, inside shard 1,
+    ending at the stream's end (the smoke's main-path shape)."""
+    return [shard_rows - BLOCK // 2 - 5, shard_rows + shard_rows // 3, shard_rows * n_shards - BLOCK]
+
+
+@pytest.mark.parametrize("kind", ["4 shards on one card", "distinct cards"])
+def test_plan_matches_the_unsharded_kernels_at_the_main_path_shapes(dev, kind):
+    """At refscale shard widths, 1 and 8 needles: the dense sharded scan
+    (K3-d, one plan launch a card) equals the unsharded dense launch, the
+    sparse sharded scan (K3-e) and the single-device sparse call (no mesh)
+    equal the unsharded segment launch at every requested chunk, and all
+    of them the plain version (over windows of the dense scan)."""
+    mesh = mesh_of(kind, dev)
+    stream = random_stream(mesh.devices, REFSCALE_SHARD, 5)
+    flat = torch.cat([s.to(dev) for s in stream])
+    G = flat.shape[0]
+    starts, counts = main_path_ranges(REFSCALE_SHARD, mesh.size), [BLOCK] * 3
+    layout = pm.card_layout(stream, 0, ks.MAX_SEGMENTS)
+    for n_real in (1, 8):
+        padded, lens = packed_of(EIGHT[:n_real])
+        kw = dict(n_real=n_real, max_words=9)
+        ks.reset_launch_counts()
+        dense = pm.sharded_scan_all_rows(mesh, stream, padded, lens, **kw)
+        assert ks.launch_counts() == {"stream": sum(len(c.launches) for c in layout),
+                                      "segments": 0}
+        want = ks.byte_scan_stream(flat, padded, lens, **kw).cpu()
+        assert dense.is_pinned() and torch.equal(dense, want), n_real
+        for lo in (0, REFSCALE_SHARD - 16_384, G - 32_768):
+            plain = ks.byte_scan_plain(flat[lo : lo + 32_768], padded, lens, n_real).cpu()
+            assert torch.equal(dense[:, lo // 32 : lo // 32 + 1024], plain), (n_real, lo)
+        ks.reset_launch_counts()
+        got, base = pm.sharded_scan_segments(mesh, stream, starts, padded, lens,
+                                             seg_chunks=counts, **kw)
+        pieces, _ = pm.segment_pieces(starts, counts, REFSCALE_SHARD, mesh.size)
+        launches = pm.piece_launches(pieces, mesh.devices, ks.MAX_SEGMENTS)
+        assert ks.launch_counts()["segments"] == sum(len(ls) for _, ls in launches)
+        one, one_base = pm.sharded_scan_segments(None, flat, starts, padded, lens,
+                                                 seg_chunks=counts, **kw)
+        single = ks.byte_scan_segments(flat, starts, padded, lens, seg_chunks=counts, **kw)
+        plain = ks.byte_scan_plain(flat, padded, lens, n_real, starts, counts)
+        assert torch.equal(one, single.cpu()) and torch.equal(one, plain.cpu()), n_real
+        read, rounded = ks.segment_layout(starts, counts, G)
+        assert one_base == [int(o) + s - r for o, s, r in
+                            zip(np.cumsum([0] + rounded[:-1]), starts, read)]
+        mine, theirs = bits(got), bits(one)
+        for s, n, b, ob in zip(starts, counts, base, one_base):
+            np.testing.assert_array_equal(mine[:, b : b + n], theirs[:, ob : ob + n])
+
+
+def test_two_threads_call_the_plan_at_once(dev):
+    """Two query threads scanning at once, each with its own ranges and
+    needles, 100 calls each: every answer equals the one the main thread
+    got alone (each thread waits on its own event)."""
+    mesh = mesh_of("4 shards on one card", dev)
+    stream = random_stream(mesh.devices, 65_536, 8)
+    cases = [(main_path_ranges(65_536, 4), [BLOCK] * 3, packed_of(EIGHT[:8])),
+             ([100, 3 * 65_536 + 7], [40_000, 9_000], packed_of(EIGHT[2:5]))]
+
+    def run(case):
+        starts, counts, (padded, lens) = case
+        return pm.sharded_scan_segments(mesh, stream, starts, padded, lens,
+                                        n_real=len(lens), max_words=9, seg_chunks=counts)
+
+    want = [run(c) for c in cases]
+    barrier = threading.Barrier(2)
+    got: list = [[], []]
+
+    def worker(i):
+        barrier.wait()
+        for _ in range(100):
+            got[i].append(run(cases[i]))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for i in range(2):
+        assert len(got[i]) == 100
+        assert all(torch.equal(w, want[i][0]) and b == want[i][1] for w, b in got[i]), i
+
+
+def test_the_callers_current_device_is_unchanged(dev):
+    """Each plan call sets the device of each card it launches on, and
+    gives the caller back the device it had: on one card and, where
+    several are visible, from each card's thread state over a mesh of
+    distinct cards."""
+    n = min(torch.cuda.device_count(), 4)
+    meshes = [mesh_of("4 shards on one card", dev)]
+    if n >= 2:
+        meshes.append(mesh_of("distinct cards", dev))
+    streams = [random_stream(m.devices, 4096, 2) for m in meshes]
+    padded, lens = packed_of(EIGHT[:3])
+    try:
+        for current in range(n):
+            torch.cuda.set_device(current)
+            for mesh, stream in zip(meshes, streams):
+                pm.sharded_scan_segments(mesh, stream, [4000], padded, lens, n_real=3,
+                                         max_words=9, seg_chunks=[200])
+                assert torch.cuda.current_device() == current
+                pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=3, max_words=9)
+                assert torch.cuda.current_device() == current
+    finally:
+        torch.cuda.set_device(dev)
+
+
+def test_pageable_output_is_refused_by_the_plan(dev):
+    """A plan into memory that is not page-locked raises before anything
+    is launched: its words stay as they were."""
+    stream = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    padded, lens = packed(1)
+    out = torch.full((1, 2), 7, dtype=torch.int32)
+    ks.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ks.byte_scan_plan_into(out, [(0, [(stream, 0, 64)])], padded, lens, n_real=1,
+                               max_words=9)
+    torch.cuda.synchronize()
+    assert (out == 7).all() and ks.launch_counts() == {"stream": 0, "segments": 0}
+
+
+def test_a_failure_part_way_waits_for_the_cards_that_launched(dev):
+    """A plan whose second launch names a card index the record takes but
+    no machine has: the call raises that error only once the first launch
+    (8 needles over a refscale stream, over a millisecond of device time)
+    has finished, so its words are all there when the call returns, and
+    the caller's current device is kept."""
+    mesh = mesh_of("4 shards on one card", dev)
+    stream = random_stream(mesh.devices, REFSCALE_SHARD, 4)
+    padded, lens = packed_of(EIGHT)
+    want = pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=8, max_words=9)
+    needle_bytes, real_lens = ks._check(stream[0], padded, lens, 8, 9)
+    out = torch.full(tuple(want.shape), 0x5A5A5A5A, dtype=torch.int32).pin_memory()
+    plan = [(0, [(s, 0, REFSCALE_SHARD) for s in stream]), (0, [(stream[0], 0, 32)])]
+    records = ks.plan_records(plan, {dev: torch.cuda.current_stream(dev).cuda_stream})
+    records[1].device = 63  # below csrc/scan.cu's MAX_DEVICES (64)
+    records[1].stream = None
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="cudaError 101"):  # cudaErrorInvalidDevice
+        ks.plan_call(needle_bytes, real_lens, records, out)
+    assert torch.equal(out, want)
+    assert torch.cuda.current_device() == dev.index
+
+
+def test_a_record_size_mismatch_is_refused_at_bind(dev, monkeypatch):
+    """A ``PlanLaunch`` mirror of another size than the library's record
+    is refused when the library is bound, before any launch."""
+    ks.library()
+
+    class Padded(ctypes.Structure):
+        _fields_ = ks.PlanLaunch._fields_ + [("extra", ctypes.c_int64)]
+
+    monkeypatch.setattr(ks, "PlanLaunch", Padded)
+    monkeypatch.setattr(ks, "_lib", None)
+    with pytest.raises(RuntimeError, match="plan record is 128 bytes"):
+        ks.library()
