@@ -40,20 +40,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..kernels.probe import (
-    probe_and_pack,
-    probe_clauses_pack,
-    probe_reduce_and_pack,
-)
+from ..kernels.probe import probe_plan
 from ..parallel.mesh import (
     LANE,
     default_mesh,
     mesh_for,
     shard_bank,
     sharded_pad_columns,
-    sharded_probe_clauses,
-    sharded_probe_packed,
-    sharded_query_step,
+    sharded_probe,
     sharded_take_columns,
     sharded_update_columns,
     sharded_zeros,
@@ -74,6 +68,18 @@ class BankChurnError(RuntimeError):
     between residency and snapshot (concurrent queries competing for an
     undersized cache). The only probe failure the engine degrades to host
     probing; kernel build and launch errors and device OOM propagate."""
+
+
+def _probe(mesh, bank2d, row_idx, shift, T: int, K: int, epilogue: str,
+           **extra) -> torch.Tensor:
+    """One probe call with an epilogue (``kernels.probe.EPILOGUE_MODES``)
+    -> its packed int32 words on the host: the sharded wrapper on a mesh,
+    else one launch of the plan entry over the one bank, into a page-locked
+    buffer the kernel writes, so no copy follows."""
+    if mesh is not None:
+        return sharded_probe(mesh, bank2d, row_idx, shift, T, K, epilogue, **extra)
+    return probe_plan([(0, [bank2d])], bank2d.shape[1] // 32, row_idx, shift, T, K, epilogue,
+                      **extra)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -435,33 +441,22 @@ class DeviceProbeBackend:
 
         The kernel library builds and loads on the first launch, so this
         moves that one-time cost (and the first launch on each bank) off
-        the first query. On a mesh each launch goes through the sharded
-        wrapper, so every shard's device loads the kernel. ``yield_to`` is
-        polled between launches (the engine's queries-in-flight gate)."""
+        the first query. Each launch is the call a query makes
+        (``_probe``), so every shard's device loads the kernel. ``yield_to``
+        is polled between launches (the engine's queries-in-flight gate)."""
         with self._lock:
             snapshots = [sb.bank2d for sb in self._superbanks.values()]
         launched = 0
-        mesh = self.mesh
+        zero = np.zeros(1, dtype=np.int32)  # host probe arrays, as a query's
+        epilogues = (("reduce_and", {"and_bits": 1}),
+                     ("clauses", {"clause_bits": [1], "member_bits": [1]}), ("pack", {}))
         for bank2d in snapshots:
             if bank2d is None:
                 continue
-            zero = np.zeros(1, dtype=np.int32)  # host probe arrays, as a query's
-            if mesh is not None:
-                launches = (
-                    lambda: sharded_query_step(mesh, bank2d, zero, zero, 1, 1, 1),
-                    lambda: sharded_probe_clauses(mesh, bank2d, zero, zero, [1], [1], 1, 1),
-                    lambda: sharded_probe_packed(mesh, bank2d, zero, zero, 1, 1),
-                )
-            else:
-                launches = (
-                    lambda: probe_reduce_and_pack(bank2d, zero, zero, 1, 1, 1),
-                    lambda: probe_clauses_pack(bank2d, zero, zero, 1, 1, [1], [1]),
-                    lambda: probe_and_pack(bank2d, zero, zero, 1, 1),
-                )
-            for launch in launches:
+            for epilogue, extra in epilogues:
                 if yield_to is not None:
                     yield_to()
-                launch()
+                _probe(self.mesh, bank2d, zero, zero, 1, 1, epilogue, **extra)
                 launched += 1
         return launched
 
@@ -703,15 +698,8 @@ class DeviceProbeBackend:
             r.clause_mask is not None for r in batch
         )
         if solo_fused:
-            if mesh is None:
-                packed = probe_reduce_and_pack(
-                    bank2d, flat_rows, shifts, total_t, k, (1 << total_t) - 1
-                )
-            else:
-                packed, _total = sharded_query_step(
-                    mesh, bank2d, flat_rows, shifts, (1 << total_t) - 1, total_t, k
-                )
-                packed = packed[None, :]
+            packed = _probe(mesh, bank2d, flat_rows, shifts, total_t, k, "reduce_and",
+                            and_bits=(1 << total_t) - 1)
         elif all_clauses:
             # One output row per member: bit t of a clause is the batch's
             # term t, bit i of a member is the batch's clause i.
@@ -726,21 +714,12 @@ class DeviceProbeBackend:
                 )
                 member_bits.append(((1 << len(clause_bits)) - 1) ^ ((1 << c0) - 1))
                 t0 += r.T
-            if mesh is None:
-                packed = probe_clauses_pack(
-                    bank2d, flat_rows, shifts, total_t, k, clause_bits, member_bits
-                )
-            else:
-                packed = sharded_probe_clauses(
-                    mesh, bank2d, flat_rows, shifts, clause_bits, member_bits, total_t, k
-                )
-        elif mesh is None:
-            packed = probe_and_pack(bank2d, flat_rows, shifts, total_t, k)
+            packed = _probe(mesh, bank2d, flat_rows, shifts, total_t, k, "clauses",
+                            clause_bits=clause_bits, member_bits=member_bits)
         else:
-            packed = sharded_probe_packed(mesh, bank2d, flat_rows, shifts, total_t, k)
-        # int32 words (on the host already on a mesh); the bytes are the
-        # uint32 bitmap.
-        packed_host = packed.cpu().numpy().view(np.uint32)
+            packed = _probe(mesh, bank2d, flat_rows, shifts, total_t, k, "pack")
+        # int32 words on the host; the bytes are the uint32 bitmap.
+        packed_host = packed.numpy().view(np.uint32)
         bits = np.unpackbits(packed_host.view(np.uint8), axis=1, bitorder="little")
         bits = bits[:, :capacity].astype(bool)
 

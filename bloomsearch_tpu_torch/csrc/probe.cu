@@ -64,8 +64,17 @@
 //   host memory the kernel writes through its device address. The
 //   single-device launch (one shard, stride C/32) runs an instantiation
 //   without the shard lookup, so its code is the unsharded kernel's.
+// - Every launch of one query's probe, on one card or on each card of a
+//   mesh, is issued and waited for by one C call (bs_probe_plan below):
+//   the parameter struct, 32 KB at the larger capacity, is filled once and
+//   each launch patches only its banks and output address; the device is
+//   switched only where the card changes and each card is waited for on
+//   one event. What a call then costs the host is one foreign call, not
+//   one a launch.
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <time.h>
 
 #define MODE_PACK 0
 #define MODE_REDUCE 1
@@ -75,6 +84,7 @@
 #define MAX_MEMBERS 32
 #define MAX_WARPS 32
 #define MAX_SHARDS 8  // shards one launch covers (kernels/probe.py MAX_SHARDS)
+#define MAX_DEVICES 64  // card indices a plan record may name
 #define LOAD_GROUP 16
 #define BLOCK_WARPS 4  // least warps a block holds where C allows
 #define CAP_SMALL 256
@@ -253,11 +263,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   p.out[t * p.C + c] = (int32_t)acc;
 }
 
-// One launch's arguments, as the C entry points take them.
-struct Args {
-  const int32_t* const* banks;  // n_shards shard pointers, each int32[R, C]
-  int n_shards;
-  int64_t R, C;
+// The probes and the epilogue of one call, as the C entry points take
+// them: the part of Params that every launch of the call shares.
+struct Probes {
   const int32_t* row_idx;  // host int32[T*K]
   const int32_t* shift;    // host int32[T*K]
   int T, K, mode;
@@ -266,49 +274,78 @@ struct Args {
   int n_clauses;
   const uint32_t* member_bits;
   int n_members;
-  int32_t* out;  // device pointer (resolved from a host one by the entry point)
-  int64_t out_stride, first_word;
 };
 
+// One launch's banks and where its words go.
+struct Target {
+  const int32_t* const* banks;  // n_shards shard pointers, each int32[R, C]
+  int n_shards;
+  int64_t R, C;
+  int32_t* out;  // device address of the launch's first word of output row 0
+  int64_t out_stride;
+};
+
+bool probes_ok(const Probes& q) {
+  return q.T >= 1 && q.T <= MAX_TERMS && q.K >= 1 && (int64_t)q.T * q.K <= CAP_MAX &&
+         q.n_clauses >= 0 && q.n_clauses <= MAX_CLAUSES && q.n_members >= 0 &&
+         q.n_members <= MAX_MEMBERS && q.mode >= MODE_PACK && q.mode <= MODE_CLAUSES;
+}
+
+bool target_ok(int n_shards, int64_t R, int64_t C, int64_t first_word, int64_t out_stride) {
+  return n_shards >= 1 && n_shards <= MAX_SHARDS && C >= 0 && C % 32 == 0 && C <= 0x7fffffff &&
+         R >= 0 && first_word >= 0 && out_stride >= first_word + (int64_t)n_shards * (C / 32);
+}
+
+// The shared part of p, filled once a call: the probes (rows and shifts
+// past the last, the LOAD_GROUP spare entries, read as row 0 and ignored),
+// the masks and the mode.
 template <int CAP>
-int launch(bool floor, const Args& a, cudaStream_t stream) {
-  static_assert(sizeof(Params<CAP>) <= 32764, "kernel parameters over 32,764 bytes");
-  Params<CAP> p;
-  p.bank = a.banks[0];
-  for (int i = 0; i < MAX_SHARDS; ++i) p.shards[i] = i < a.n_shards ? a.banks[i] : a.banks[0];
-  p.out = a.out + a.first_word;
-  p.C = a.C;
-  p.words_per_shard = (uint32_t)(a.C / 32);
-  p.words = (int64_t)a.n_shards * (a.C / 32);
-  p.out_stride = a.out_stride;
-  p.rows_in = a.R > 0x7fffffff ? 0x80000000u : (uint32_t)a.R;
-  const int T = a.T;
+void fill_probes(Params<CAP>& p, const Probes& q) {
+  const int T = q.T, n = q.T * q.K;
   p.T = T;
-  p.K = a.K;
-  p.mode = a.mode;
+  p.K = q.K;
+  p.mode = q.mode;
+  p.and_bits = q.and_bits & (T == 32 ? FULL_MASK : (1u << T) - 1u);
+  p.n_clauses = q.n_clauses;
+  p.n_members = q.n_members;
+  for (int i = 0; i < MAX_CLAUSES; ++i) p.clause_bits[i] = i < q.n_clauses ? q.clause_bits[i] : 0u;
+  for (int m = 0; m < MAX_MEMBERS; ++m) p.member_bits[m] = m < q.n_members ? q.member_bits[m] : 0u;
+  for (int i = 0; i < n; ++i) {
+    p.row[i] = q.row_idx[i];
+    p.shift[i] = (uint8_t)(q.shift[i] & 31);
+  }
+  for (int i = n; i < n + LOAD_GROUP; ++i) {
+    p.row[i] = 0;
+    p.shift[i] = 0;
+  }
+}
+
+// One launch of p (its probes filled) over t, the launch's own fields
+// patched in place.
+template <int CAP>
+int launch(bool floor, Params<CAP>& p, const Target& t, cudaStream_t stream) {
+  static_assert(sizeof(Params<CAP>) <= 32764, "kernel parameters over 32,764 bytes");
+  p.bank = t.banks[0];
+  for (int i = 0; i < MAX_SHARDS; ++i) p.shards[i] = i < t.n_shards ? t.banks[i] : t.banks[0];
+  p.out = t.out;
+  p.C = t.C;
+  p.words_per_shard = (uint32_t)(t.C / 32);
+  p.words = (int64_t)t.n_shards * (t.C / 32);
+  p.out_stride = t.out_stride;
+  p.rows_in = t.R > 0x7fffffff ? 0x80000000u : (uint32_t)t.R;
+  const int T = p.T;
   const int64_t words = p.words;
   int W = (BLOCK_WARPS + T - 1) / T;
   if (W > MAX_WARPS / T) W = MAX_WARPS / T;
   if (W > words) W = (int)words;
   if (W < 1) W = 1;
   p.words_per_block = W;
-  p.and_bits = a.and_bits & (T == 32 ? FULL_MASK : (1u << T) - 1u);
-  p.n_clauses = a.n_clauses;
-  p.n_members = a.n_members;
-  for (int i = 0; i < MAX_CLAUSES; ++i)
-    p.clause_bits[i] = i < a.n_clauses ? a.clause_bits[i] : 0u;
-  for (int m = 0; m < MAX_MEMBERS; ++m)
-    p.member_bits[m] = m < a.n_members ? a.member_bits[m] : 0u;
-  for (int i = 0; i < T * a.K + LOAD_GROUP; ++i) {
-    p.row[i] = i < T * a.K ? a.row_idx[i] : 0;
-    p.shift[i] = i < T * a.K ? (uint8_t)(a.shift[i] & 31) : 0;
-  }
   const int64_t blocks = (words + W - 1) / W;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
     if (floor)
       probe_floor_kernel<CAP><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
-    else if (a.n_shards > 1 || a.out_stride != a.C / 32)
+    else if (t.n_shards > 1 || t.out_stride != t.C / 32)
       probe_kernel<CAP, true><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
     else
       probe_kernel<CAP, false><<<(unsigned)blocks, 32 * T * W, 0, stream>>>(p);
@@ -316,15 +353,31 @@ int launch(bool floor, const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The address through which card `device` writes the page-locked host
-// memory at *p, in place of *p. The card's context is made current on the
-// calling thread first: a thread that has launched nothing yet may have
+// One launch of the single-launch entry points, its arguments checked.
+template <int CAP>
+int launch_one(bool floor, const Probes& q, const Target& t, void* stream) {
+  Params<CAP> p;
+  fill_probes(p, q);
+  return launch(floor, p, t, (cudaStream_t)stream);
+}
+
+int dispatch(bool floor, const Probes& q, Target t, int64_t first_word, void* stream) {
+  if (!probes_ok(q) || !target_ok(t.n_shards, t.R, t.C, first_word, t.out_stride))
+    return (int)cudaErrorInvalidValue;
+  t.out += first_word;
+  if (q.T * q.K <= CAP_SMALL) return launch_one<CAP_SMALL>(floor, q, t, stream);
+  return launch_one<CAP_MAX>(floor, q, t, stream);
+}
+
+// The address through which the current card writes the page-locked host
+// memory at *p, in place of *p: memory that is not page-locked
+// (cudaErrorInvalidHostPointer) or that the card cannot address
+// (cudaErrorInvalidDevicePointer) is refused. The caller makes the card's
+// context current first: a thread that has launched nothing yet may have
 // none, and then no device address is found.
-cudaError_t device_address(int device, int32_t** p) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+cudaError_t host_device_address(int32_t** p) {
   cudaPointerAttributes attr;
-  err = cudaPointerGetAttributes(&attr, *p);
+  cudaError_t err = cudaPointerGetAttributes(&attr, *p);
   if (err != cudaSuccess) return err;
   if (attr.type != cudaMemoryTypeHost) return cudaErrorInvalidHostPointer;
   if (attr.devicePointer == nullptr) return cudaErrorInvalidDevicePointer;
@@ -332,35 +385,152 @@ cudaError_t device_address(int device, int32_t** p) {
   return cudaSuccess;
 }
 
-int dispatch(bool floor, const Args& a, void* stream) {
-  if (a.n_shards < 1 || a.n_shards > MAX_SHARDS || a.T < 1 || a.T > MAX_TERMS || a.K < 1 ||
-      (int64_t)a.T * a.K > CAP_MAX || a.C < 0 || a.C % 32 != 0 || a.C > 0x7fffffff ||
-      a.R < 0 || a.n_clauses < 0 || a.n_clauses > MAX_CLAUSES || a.n_members < 0 ||
-      a.n_members > MAX_MEMBERS || a.mode < MODE_PACK || a.mode > MODE_CLAUSES ||
-      a.first_word < 0 || a.out_stride < a.first_word + (int64_t)a.n_shards * (a.C / 32))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.T * a.K <= CAP_SMALL) return launch<CAP_SMALL>(floor, a, s);
-  return launch<CAP_MAX>(floor, a, s);
+// One event a card for each thread that calls bs_probe_plan, made at the
+// thread's first call on the card (timing off) and kept until the thread
+// ends: two threads calling at once never wait on each other's event.
+struct ThreadEvents {
+  cudaEvent_t done[MAX_DEVICES] = {};
+  ~ThreadEvents() {
+    for (cudaEvent_t e : done)
+      if (e != nullptr) cudaEventDestroy(e);
+  }
+};
+thread_local ThreadEvents thread_events;
+
+int64_t monotonic_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+}  // namespace
+
+// One launch of bs_probe_plan: n_shards banks of card `device`, each
+// int32[R, C], probed as one bank of their columns in order on `stream`, a
+// stream of that card, its words stored from word first_word of each
+// output row. 104 bytes without padding on a 64-bit host;
+// kernels/probe.py::PlanLaunch mirrors it and compares its size with
+// bs_probe_plan_record_size() when it binds.
+struct PlanLaunch {
+  int32_t device;                      // offset 0
+  int32_t n_shards;                    // 4: 1..MAX_SHARDS
+  void* stream;                        // 8: a cudaStream_t
+  const int32_t* shards[MAX_SHARDS];   // 16
+  int64_t R;                           // 80
+  int64_t C;                           // 88
+  int64_t first_word;                  // 96
+};
+static_assert(offsetof(PlanLaunch, n_shards) == 4 && offsetof(PlanLaunch, stream) == 8 &&
+                  offsetof(PlanLaunch, shards) == 16 && offsetof(PlanLaunch, R) == 80 &&
+                  offsetof(PlanLaunch, C) == 88 && offsetof(PlanLaunch, first_word) == 96 &&
+                  sizeof(PlanLaunch) == 104,
+              "PlanLaunch's layout is the one kernels/probe.py mirrors");
+
+namespace {
+
+// bs_probe_plan's issue and wait, with Params of capacity CAP (module doc:
+// the larger is a 32 KB struct, so it is filled once here, not a launch).
+template <int CAP>
+int run_plan(const Probes& q, const PlanLaunch* plan, int n_launches, int32_t* out,
+             int64_t out_stride, bool out_on_host, int64_t* stamps) {
+  int last[MAX_DEVICES];  // each card's last launch, -1 for none
+  void* streams[MAX_DEVICES];
+  for (int d = 0; d < MAX_DEVICES; ++d) last[d] = -1;
+  for (int i = 0; i < n_launches; ++i) {
+    const PlanLaunch& r = plan[i];
+    if (r.device < 0 || r.device >= MAX_DEVICES ||
+        !target_ok(r.n_shards, r.R, r.C, r.first_word, out_stride) ||
+        (last[r.device] >= 0 && streams[r.device] != r.stream) ||
+        (!out_on_host && r.device != plan[0].device))
+      return (int)cudaErrorInvalidValue;
+    for (int s = 0; s < r.n_shards; ++s)
+      if (r.shards[s] == nullptr) return (int)cudaErrorInvalidValue;
+    last[r.device] = i;
+    streams[r.device] = r.stream;
+  }
+  int caller = 0;
+  int rc = (int)cudaGetDevice(&caller);
+  if (rc != 0) return rc;
+
+  Params<CAP> p;
+  fill_probes(p, q);
+  ThreadEvents& events = thread_events;
+  int32_t* card_out[MAX_DEVICES] = {};  // the output's address on each card
+  bool recorded[MAX_DEVICES] = {};
+  int launched[MAX_DEVICES];  // the cards that may have launched, in order
+  int n_cards = 0;
+  int current = -1;
+  for (int i = 0; i < n_launches && rc == 0; ++i) {
+    const PlanLaunch& r = plan[i];
+    const int d = r.device;
+    if (d != current) {
+      rc = (int)cudaSetDevice(d);
+      if (rc != 0) break;
+      current = d;
+    }
+    if (card_out[d] == nullptr) {
+      int32_t* addr = out;
+      if (out_on_host) rc = (int)host_device_address(&addr);
+      if (rc == 0 && events.done[d] == nullptr)
+        rc = (int)cudaEventCreateWithFlags(&events.done[d], cudaEventDisableTiming);
+      if (rc != 0) break;
+      card_out[d] = addr;
+      launched[n_cards++] = d;  // from here on waited for below, whatever follows
+    }
+    const Target t = {r.shards, r.n_shards, r.R, r.C, card_out[d] + r.first_word, out_stride};
+    rc = launch(false, p, t, static_cast<cudaStream_t>(r.stream));
+    if (rc != 0) break;
+    if (i == last[d]) {
+      rc = (int)cudaEventRecord(events.done[d], static_cast<cudaStream_t>(r.stream));
+      recorded[d] = rc == 0;
+    }
+  }
+  if (stamps != nullptr) stamps[1] = monotonic_ns();
+  for (int k = 0; k < n_cards; ++k) {
+    const int d = launched[k];
+    cudaError_t err;
+    if (recorded[d]) {
+      err = cudaEventSynchronize(events.done[d]);
+    } else {  // failed before its event: wait for the card's whole stream
+      err = cudaSetDevice(d);
+      if (err == cudaSuccess) {
+        current = d;
+        err = cudaStreamSynchronize(static_cast<cudaStream_t>(streams[d]));
+      }
+    }
+    if (rc == 0) rc = (int)err;
+  }
+  if (current != -1 && current != caller) {
+    const cudaError_t err = cudaSetDevice(caller);
+    if (rc == 0) rc = (int)err;
+  }
+  // The error is returned here; it must not stay the thread's last error,
+  // which the next launch's check (this file's or torch's) would report.
+  if (rc != 0) cudaGetLastError();
+  return rc;
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. row_idx and shift (int32[T*K]),
 // clause_bits and member_bits are HOST arrays: they travel by value in the
-// kernel's parameters. Each launches on `stream` and returns
-// cudaGetLastError(): 0 when the launch was accepted.
+// kernel's parameters. The single-launch entries launch on `stream` and
+// return cudaGetLastError(): 0 when the launch was accepted.
 //
 // bs_probe_launch covers n_shards <= MAX_SHARDS banks of one card, each
 // int32[R, C], as one bank of n_shards * C columns in shard order: output
 // word w of row r (bit i: that bank's column 32w + i) is stored at
 // out[r * out_stride + first_word + w]. One bank with out_stride = C/32 and
-// first_word = 0 is the single-device launch. With out_on_host, `out` is
+// first_word = 0 is the single-device launch (kernels/probe.py's single-bank
+// wrappers). The shard table, the stride and a host output serve
+// tools/exp_mesh_join.py's per-launch form (the join before bs_probe_plan,
+// timed against it) and the device time of the plan's one-card launch, whose
+// own call waits inside itself. With out_on_host, `out` is
 // page-locked host memory, which the kernel writes through its device
 // address on card `device` (the banks' card): memory that is not
 // page-locked (cudaErrorInvalidHostPointer) or that the card cannot
 // address (cudaErrorInvalidDevicePointer) is refused before anything is
-// launched.
+// launched. It waits for nothing, so a CUDA graph can capture it.
 extern "C" int bs_probe_launch(const int32_t* const* banks, int n_shards, int64_t R, int64_t C,
                                const int32_t* row_idx, const int32_t* shift, int T, int K,
                                int mode, uint32_t and_bits, const uint32_t* clause_bits,
@@ -368,12 +538,13 @@ extern "C" int bs_probe_launch(const int32_t* const* banks, int n_shards, int64_
                                int32_t* out, int64_t out_stride, int64_t first_word,
                                int out_on_host, int device, void* stream) {
   if (out_on_host) {
-    const cudaError_t err = device_address(device, &out);
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = host_device_address(&out);
     if (err != cudaSuccess) return (int)err;
   }
-  const Args a = {banks, n_shards, R, C, row_idx, shift, T, K, mode, and_bits, clause_bits,
-                  n_clauses, member_bits, n_members, out, out_stride, first_word};
-  return dispatch(false, a, stream);
+  const Probes q = {row_idx, shift, T, K, mode, and_bits, clause_bits, n_clauses, member_bits,
+                    n_members};
+  return dispatch(false, q, Target{banks, n_shards, R, C, out, out_stride}, first_word, stream);
 }
 
 // K1f's entry point: one bank, out is int32[T, C] on the card. The same
@@ -381,7 +552,50 @@ extern "C" int bs_probe_launch(const int32_t* const* banks, int n_shards, int64_
 extern "C" int bs_probe_floor_launch(const int32_t* bank, int64_t R, int64_t C,
                                      const int32_t* row_idx, const int32_t* shift, int T,
                                      int K, int32_t* out, void* stream) {
-  const Args a = {&bank, 1, R, C, row_idx, shift, T, K, MODE_PACK, 0u, nullptr, 0, nullptr,
-                  0, out, C / 32, 0};
-  return dispatch(true, a, stream);
+  const Probes q = {row_idx, shift, T, K, MODE_PACK, 0u, nullptr, 0, nullptr, 0};
+  return dispatch(true, q, Target{&bank, 1, R, C, out, C / 32}, 0, stream);
+}
+
+extern "C" int bs_probe_plan_record_size() { return (int)sizeof(PlanLaunch); }
+
+// Every launch of one probe call, issued and waited for in one call: the
+// K3 wrappers' launches on every card of a mesh, or the single-device
+// combiner's one launch. The probes, masks and mode are given once (as
+// bs_probe_launch takes them) and go into one parameter struct, filled
+// once; each launch patches only its banks, width and output address.
+// plan holds n_launches records; out has out_stride words a row and is
+// page-locked host memory (out_on_host), written by every card through its
+// own device address, or a device buffer of the one card every record
+// names.
+//
+// Order: every record is checked before the first launch (a card's records
+// must share one stream); then the launches in plan order, the device
+// switched only when the card changes (and always before the first launch:
+// a fresh thread has no current context), the output's device address
+// looked up at each card's first launch (so memory that is not page-locked
+// is refused before anything is launched), one event recorded on a card's
+// stream after its last launch; then every card's event waited for, and
+// the caller's current device restored (torch assumes it is unchanged).
+// Waiting inside, the call cannot be captured into a CUDA graph.
+//
+// A failure part-way still waits for every card that launched before it
+// returns: those kernels write `out`, which the caller frees or reuses once
+// this returns. Returns 0, or the first CUDA error (cudaErrorInvalidValue
+// for an argument or record the kernel does not take). stamps, when not
+// null, gets the CLOCK_MONOTONIC ns at entry and once every launch and
+// event is issued (the measurement tool splits a call's host time with
+// them).
+extern "C" int bs_probe_plan(const int32_t* row_idx, const int32_t* shift, int T, int K,
+                             int mode, uint32_t and_bits, const uint32_t* clause_bits,
+                             int n_clauses, const uint32_t* member_bits, int n_members,
+                             const PlanLaunch* plan, int n_launches, int32_t* out,
+                             int64_t out_stride, int out_on_host, int64_t* stamps) {
+  if (stamps != nullptr) stamps[0] = monotonic_ns();
+  const Probes q = {row_idx, shift, T, K, mode, and_bits, clause_bits, n_clauses, member_bits,
+                    n_members};
+  if (plan == nullptr || n_launches < 1 || out == nullptr || !probes_ok(q))
+    return (int)cudaErrorInvalidValue;
+  if (T * K <= CAP_SMALL)
+    return run_plan<CAP_SMALL>(q, plan, n_launches, out, out_stride, out_on_host != 0, stamps);
+  return run_plan<CAP_MAX>(q, plan, n_launches, out, out_stride, out_on_host != 0, stamps);
 }

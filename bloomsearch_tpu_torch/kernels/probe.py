@@ -32,12 +32,16 @@ host). Clause and member masks are bit masks: bit t of ``clause_bits[i]``
 puts term t in clause i, bit i of ``member_bits[m]`` puts clause i in
 member m.
 
-``probe_shards_into`` is the launch under the sharded wrappers (K3,
-``parallel/mesh.py``): one launch covers up to ``MAX_SHARDS`` banks of one
-card, all ``[R, C]``, as one bank of their columns side by side, and
-stores its words at a given first word of each row of an output that may
-be wider (the joined bitmap of a whole mesh) and may be page-locked host
-memory, which the kernel then writes through its device address.
+``probe_plan_into`` is what the sharded wrappers (K3, ``parallel/mesh.py``)
+and the single-device combiner (``bloom/bank.py``) call, through
+``probe_plan``: every launch of one probe (a plan of launches on one card
+or several, each over up to ``MAX_SHARDS`` banks of one card, all ``[R,
+C]``, as one bank of their columns side by side) into one output that may
+be page-locked host memory, which the kernel then writes through its
+device address, issued and waited for in one foreign call
+(``csrc/probe.cu``'s ``bs_probe_plan``), which ctypes makes with the
+interpreter lock released. The single-bank wrappers above launch into a
+new device tensor and wait for nothing, so a CUDA graph can capture them.
 
 ``probe_floor`` (K1f) is the probe's access-pattern floor: K1's launch
 shape (its warps and blocks, its by-value probes), loads and row check with
@@ -51,7 +55,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +72,27 @@ MAX_MEMBERS = 32
 MAX_PROBES = 6400  # T*K: csrc/probe.cu CAP_MAX, the kernel's parameters (module doc)
 MAX_SHARDS = 8  # banks one launch covers: csrc/probe.cu MAX_SHARDS
 EPILOGUE_MODES = {"pack": MODE_PACK, "reduce_and": MODE_REDUCE, "clauses": MODE_CLAUSES}
+
+# One launch of a plan: (first output word, up to MAX_SHARDS banks of one
+# device, all of one shape).
+PlanLaunchArgs = tuple[int, Sequence[torch.Tensor]]
+
+
+class PlanLaunch(ctypes.Structure):
+    """One launch record of ``bs_probe_plan``, the mirror of
+    ``csrc/probe.cu``'s ``PlanLaunch`` (104 bytes without padding: device 0,
+    n_shards 4, stream 8, shards 16, R 80, C 88, first_word 96). ``bind``
+    refuses a build whose record size differs."""
+
+    _fields_ = [
+        ("device", ctypes.c_int32),
+        ("n_shards", ctypes.c_int32),
+        ("stream", ctypes.c_void_p),
+        ("shards", ctypes.c_void_p * MAX_SHARDS),
+        ("R", ctypes.c_int64),
+        ("C", ctypes.c_int64),
+        ("first_word", ctypes.c_int64),
+    ]
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -157,7 +182,8 @@ def build_library(force: bool = False) -> str:
 
 def bind(path: str) -> ctypes.CDLL:
     """Load a library built from ``csrc/probe.cu`` and declare its C entry
-    points."""
+    points. Raises when its plan record is not the size of ``PlanLaunch``
+    (a launch would read its pointers from the wrong bytes)."""
     lib = ctypes.CDLL(path)
     p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
     lib.bs_probe_launch.argtypes = [
@@ -166,6 +192,15 @@ def bind(path: str) -> ctypes.CDLL:
     lib.bs_probe_launch.restype = ctypes.c_int
     lib.bs_probe_floor_launch.argtypes = [p, i64, i64, p, p, i32, i32, p, p]
     lib.bs_probe_floor_launch.restype = ctypes.c_int
+    lib.bs_probe_plan.argtypes = [p, p, i32, i32, i32, u32, p, i32, p, i32, p, i32, p, i64, i32,
+                                  p]
+    lib.bs_probe_plan.restype = ctypes.c_int
+    lib.bs_probe_plan_record_size.argtypes = []
+    lib.bs_probe_plan_record_size.restype = ctypes.c_int
+    size = lib.bs_probe_plan_record_size()
+    if size != ctypes.sizeof(PlanLaunch):
+        raise RuntimeError(f"{path}: a plan record is {size} bytes, PlanLaunch "
+                           f"{ctypes.sizeof(PlanLaunch)}")
     return lib
 
 
@@ -219,32 +254,25 @@ def _bits(values: Sequence[int], limit: int, what: str) -> tuple:
     return (ctypes.c_uint32 * max(len(values), 1))(*values), len(values)
 
 
-def _launch(banks: Sequence[torch.Tensor], row_idx: np.ndarray, shift: np.ndarray, T, K,
-            mode, out_rows: int, out: Optional[torch.Tensor] = None, first_word: int = 0,
-            and_bits=0, clause_bits=(), member_bits=()) -> torch.Tensor:
-    """One kernel launch over ``banks`` (checked by the caller: one card,
-    one shape) on their card's current stream with the host probe arrays in
-    its parameters, storing word w of each output row at ``out[row,
-    first_word + w]``; ``out`` lies on that card or in page-locked host
-    memory, or is None for a new int32[out_rows, C/32] on the card ->
-    ``out``. Counts nothing (the wrappers count)."""
-    bank = banks[0]
+def _launch(bank: torch.Tensor, row_idx: np.ndarray, shift: np.ndarray, T, K, mode,
+            out_rows: int, and_bits=0, clause_bits=(), member_bits=()) -> torch.Tensor:
+    """One kernel launch over ``bank`` on its card's current stream, with
+    the host probe arrays in its parameters, into a new int32[out_rows,
+    C/32] on the card. Counts nothing (the wrappers count)."""
     if bank.device.type != "cuda":
         raise ValueError(f"the probe kernel runs on CUDA tensors, got {bank.device}")
     R, C = bank.shape
     clauses, n_clauses = _bits(clause_bits, MAX_CLAUSES, "clauses")
     members, n_members = _bits(member_bits, MAX_MEMBERS, "members")
-    table = (ctypes.c_void_p * len(banks))(*[b.data_ptr() for b in banks])
+    table = (ctypes.c_void_p * 1)(bank.data_ptr())
     lib = library()
     with torch.cuda.device(bank.device):
-        if out is None:
-            out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
+        out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
         stream = torch.cuda.current_stream(bank.device).cuda_stream
         err = lib.bs_probe_launch(
-            table, len(banks), R, C, row_idx.ctypes.data, shift.ctypes.data, T, K, mode,
+            table, 1, R, C, row_idx.ctypes.data, shift.ctypes.data, T, K, mode,
             int(and_bits) & 0xFFFFFFFF, clauses, n_clauses, members, n_members,
-            out.data_ptr(), out.shape[1], first_word, out.device.type == "cpu",
-            bank.device.index, stream,
+            out.data_ptr(), C // 32, 0, 0, bank.device.index, stream,
         )
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: cudaError {err}")
@@ -338,7 +366,7 @@ def probe_and_pack(bank, row_idx, shift, T: int, K: int) -> torch.Tensor:
     rows, shifts = _check(bank, row_idx, shift, T, K)
     if bank.device.type == "cpu":
         return pack_bitmap_plain(_plain_match(bank, rows, shifts, T, K))
-    out = _launch((bank,), rows, shifts, T, K, MODE_PACK, T)
+    out = _launch(bank, rows, shifts, T, K, MODE_PACK, T)
     _count("pack", bank.shape[1], T, T)
     return out
 
@@ -351,7 +379,7 @@ def probe_reduce_and_pack(bank, row_idx, shift, T: int, K: int,
     if bank.device.type == "cpu":
         match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(reduce_and_plain(match, and_bits))
-    out = _launch((bank,), rows, shifts, T, K, MODE_REDUCE, 1, and_bits=and_bits)
+    out = _launch(bank, rows, shifts, T, K, MODE_REDUCE, 1, and_bits=and_bits)
     _count("reduce_and", bank.shape[1], T, 1)
     return out
 
@@ -367,67 +395,171 @@ def probe_clauses_pack(bank, row_idx, shift, T: int, K: int,
         match = _plain_match(bank, rows, shifts, T, K)
         return pack_bitmap_plain(clauses_plain(match, clause_bits, member_bits))
     out = _launch(
-        (bank,), rows, shifts, T, K, MODE_CLAUSES, len(member_bits),
+        bank, rows, shifts, T, K, MODE_CLAUSES, len(member_bits),
         clause_bits=clause_bits, member_bits=member_bits,
     )
     _count("clauses", bank.shape[1], T, len(member_bits), len(clause_bits))
     return out
 
 
-def probe_shards_into(out: torch.Tensor, first_word: int, banks: Sequence[torch.Tensor],
-                      row_idx, shift, T: int, K: int, epilogue: str, and_bits: int = 0,
-                      clause_bits: Sequence[int] = (),
-                      member_bits: Sequence[int] = ()) -> None:
-    """Probe up to ``MAX_SHARDS`` banks of one device, all ``int32[R, C]``,
-    as one bank of their columns in order, with an epilogue of
-    ``EPILOGUE_MODES`` (its arguments as ``probe_reduce_and_pack`` and
-    ``probe_clauses_pack`` take them); bank i's packed words land at
-    ``out[:, first_word + i*C/32 : first_word + (i+1)*C/32]``, ``out``
-    being ``int32[T or 1 or M, >= first_word + len(banks)*C/32]``.
+def _plain_into(out: torch.Tensor, first_word: int, banks: Sequence[torch.Tensor],
+                rows: np.ndarray, shifts: np.ndarray, T: int, K: int, epilogue: str,
+                and_bits: int, clause_bits: Sequence[int], member_bits: Sequence[int]) -> None:
+    """The plain version of one launch over CPU ``banks``, bank by bank,
+    into the launch's slices of ``out``."""
+    words = banks[0].shape[1] // 32
+    for i, b in enumerate(banks):
+        match = _plain_match(b, rows, shifts, T, K)
+        if epilogue == "reduce_and":
+            match = reduce_and_plain(match, and_bits)
+        elif epilogue == "clauses":
+            match = clauses_plain(match, clause_bits, member_bits)
+        at = first_word + i * words
+        out[:, at : at + words] = pack_bitmap_plain(match)
 
-    On CUDA banks: one launch on their card, counted once under the
-    epilogue at the launch's width ``len(banks)*C``; ``out`` lies on that
-    card or in page-locked host memory the card can address, else the
-    launch raises. On CPU banks: the plain version, bank by bank, into the
-    same slices (counted nowhere)."""
+
+def output_rows(epilogue: str, T: int, member_bits: Sequence[int] = ()) -> int:
+    """The rows of an epilogue's output: T packed terms, one AND, or M
+    members."""
+    return {"pack": T, "reduce_and": 1}.get(epilogue, len(member_bits))
+
+
+def _check_plan(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], out_rows: int) -> None:
+    """Refuse a plan the kernel does not take: launches of 1..MAX_SHARDS
+    banks of one device, every bank a contiguous tensor of one shape and
+    type, each launch's words inside ``out`` (``int32[out_rows, words]``).
+    Each distinct bank is checked once (a plan names few)."""
+    first = plan[0][1][0]
+    shape, dtype, kind = first.shape, first.dtype, first.device.type
+    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.shape[0] != out_rows):
+        raise ValueError(f"out must be a contiguous int32[{out_rows}, words] tensor")
+    width, words = out.shape[1], shape[1] // 32
+    devices: dict = {}  # id of a checked bank -> its device
+    for first_word, banks in plan:
+        if not 1 <= len(banks) <= MAX_SHARDS:
+            raise ValueError(f"a launch of {len(banks)} banks: it takes 1..{MAX_SHARDS}")
+        device = None
+        for b in banks:
+            at = devices.get(id(b))
+            if at is None:
+                at = b.device
+                if b.shape != shape or b.dtype != dtype or not b.is_contiguous() \
+                        or at.type != kind:
+                    raise ValueError("a plan's banks must be contiguous tensors of one shape, "
+                                     "type and kind of device")
+                devices[id(b)] = at
+            if device is None:
+                device = at
+            elif at != device:
+                raise ValueError(f"a launch's banks lie on {device} and {at}")
+        if first_word < 0 or width < first_word + len(banks) * words:
+            raise ValueError(f"a launch of {len(banks)} banks of {words} words from word "
+                             f"{first_word} of {width}")
+
+
+def plan_records(plan: Sequence[PlanLaunchArgs], streams: Mapping) -> ctypes.Array:
+    """``plan`` as ``bs_probe_plan``'s records, each launch on the stream
+    handle ``streams`` gives for its device (-1 stands for the CPU's
+    device index, which no card has)."""
+    records = (PlanLaunch * len(plan))()
+    for rec, (first_word, banks) in zip(records, plan):
+        device = banks[0].device
+        rec.device = -1 if device.index is None else device.index
+        rec.n_shards = len(banks)
+        rec.stream = streams[device]
+        for i, b in enumerate(banks):
+            rec.shards[i] = b.data_ptr()
+        rec.R, rec.C = banks[0].shape
+        rec.first_word = first_word
+    return records
+
+
+def plan_call(rows: np.ndarray, shifts: np.ndarray, T: int, K: int, epilogue: str,
+              records: ctypes.Array, out: torch.Tensor, and_bits: int = 0,
+              clause_bits: Sequence[int] = (), member_bits: Sequence[int] = (),
+              stamps: Optional[ctypes.Array] = None) -> None:
+    """The one foreign call of a plan (``_check``'s probe arrays, the
+    records, the output: page-locked host memory, or a buffer on the one
+    card of every record); ``stamps``, an int64[2] ctypes array, gets the
+    monotonic ns at its entry and once it has issued everything."""
+    clauses = members = None
+    n_clauses = n_members = 0
+    if epilogue == "clauses":
+        clauses, n_clauses = _bits(clause_bits, MAX_CLAUSES, "clauses")
+        members, n_members = _bits(member_bits, MAX_MEMBERS, "members")
+    err = library().bs_probe_plan(
+        rows.ctypes.data, shifts.ctypes.data, T, K, EPILOGUE_MODES[epilogue],
+        int(and_bits) & 0xFFFFFFFF, clauses, n_clauses, members, n_members, records,
+        len(records), out.data_ptr(), out.shape[1], out.device.type == "cpu", stamps)
+    if err != 0:
+        raise RuntimeError(f"probe plan failed: cudaError {err}")
+
+
+def probe_plan_into(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], row_idx, shift, T: int,
+                    K: int, epilogue: str, and_bits: int = 0,
+                    clause_bits: Sequence[int] = (),
+                    member_bits: Sequence[int] = ()) -> None:
+    """Every launch of ``plan`` into ``out`` (``int32[T or 1 or M,
+    words]``, the rows of the epilogue of ``EPILOGUE_MODES``, its arguments
+    as ``probe_reduce_and_pack`` and ``probe_clauses_pack`` take them):
+    launch ``(first_word, banks)`` probes up to ``MAX_SHARDS`` banks
+    ``int32[R, C]`` of one device as one bank of their columns in order,
+    and its packed words land at ``out[:, first_word : first_word +
+    len(banks)*C/32]``.
+
+    On CUDA banks: ``out`` is page-locked host memory (or a buffer on the
+    one card every launch names), and the whole plan is one foreign call
+    (``bs_probe_plan``): the probe arrays checked and packed once, each
+    launch issued on its card's current stream, every card's launches
+    issued before any is waited for, and the call returns once every card
+    is done (after a failure too, before it raises), the caller's current
+    device unchanged. Each launch counts once under the epilogue at its
+    width ``len(banks)*C`` (``launch_shapes``). On CPU banks: the plain
+    version, bank by bank, into the same slices (counted nowhere)."""
     if epilogue not in EPILOGUE_MODES:
         raise ValueError(f"unknown epilogue {epilogue!r}: one of {sorted(EPILOGUE_MODES)}")
-    if not 1 <= len(banks) <= MAX_SHARDS:
-        raise ValueError(f"{len(banks)} banks: one launch takes 1..{MAX_SHARDS}")
-    bank = banks[0]
-    rows, shifts = _check(bank, row_idx, shift, T, K)
-    R, C = bank.shape
-    for b in banks:
-        if (b.shape != bank.shape or b.dtype != bank.dtype or b.device != bank.device
-                or not b.is_contiguous()):
-            raise ValueError("the banks of one launch must be contiguous tensors of one "
-                             "shape, type and device")
-    words = C // 32
-    out_rows = {"pack": T, "reduce_and": 1}.get(epilogue, len(member_bits))
-    if (out.dim() != 2 or out.dtype != torch.int32 or not out.is_contiguous()
-            or out.shape[0] != out_rows or first_word < 0
-            or out.shape[1] < first_word + len(banks) * words):
-        raise ValueError(f"out must be a contiguous int32[{out_rows}, >= "
-                         f"{first_word + len(banks) * words}] tensor")
     if epilogue == "clauses" and (len(clause_bits) > MAX_CLAUSES
                                   or len(member_bits) > MAX_MEMBERS):
         raise ValueError("too many clauses or members for one launch")
-    if bank.device.type == "cpu":
-        for i, b in enumerate(banks):
-            match = _plain_match(b, rows, shifts, T, K)
-            if epilogue == "reduce_and":
-                match = reduce_and_plain(match, and_bits)
-            elif epilogue == "clauses":
-                match = clauses_plain(match, clause_bits, member_bits)
-            at = first_word + i * words
-            out[:, at : at + words] = pack_bitmap_plain(match)
+    if not plan or not plan[0][1]:
+        raise ValueError("an empty plan or launch")
+    first = plan[0][1][0]
+    rows, shifts = _check(first, row_idx, shift, T, K)
+    out_rows = output_rows(epilogue, T, member_bits)
+    _check_plan(out, plan, out_rows)
+    if first.device.type == "cpu":
+        for first_word, banks in plan:
+            _plain_into(out, first_word, banks, rows, shifts, T, K, epilogue, and_bits,
+                        clause_bits, member_bits)
         return
-    if out.device.type != "cpu" and out.device != bank.device:
-        raise ValueError(f"out is on {out.device}, the banks on {bank.device}")
-    _launch(banks, rows, shifts, T, K, EPILOGUE_MODES[epilogue], out_rows, out, first_word,
-            and_bits=and_bits, clause_bits=clause_bits, member_bits=member_bits)
-    _count(epilogue, len(banks) * C, T, out_rows, len(clause_bits))
+    if first.device.type != "cuda":
+        raise ValueError(f"the probe kernel runs on CUDA tensors, got {first.device}")
+    devices = dict.fromkeys(banks[0].device for _, banks in plan)
+    if out.device.type != "cpu" and list(devices) != [out.device]:
+        raise ValueError(f"out is on {out.device}, the plan's banks on {list(devices)}")
+    # Each card's current stream as its raw handle: the value of
+    # torch.cuda.current_stream(device).cuda_stream, from the getter torch's
+    # own generated kernels use, with no Stream object built for it.
+    streams = {d: torch._C._cuda_getCurrentRawStream(d.index) for d in devices}
+    plan_call(rows, shifts, T, K, epilogue, plan_records(plan, streams), out, and_bits,
+              clause_bits, member_bits)
+    C, n_clauses = first.shape[1], len(clause_bits)
+    with _count_lock:
+        for _, banks in plan:
+            _add((epilogue, len(banks) * C, T, out_rows, n_clauses), 1)
 
+
+def probe_plan(plan: Sequence[PlanLaunchArgs], words: int, row_idx, shift, T: int, K: int,
+               epilogue: str, **extra) -> torch.Tensor:
+    """``probe_plan_into`` into a new int32[T or 1 or M, words] output
+    (``extra``: its epilogue arguments): page-locked host memory for CUDA
+    banks, which the plan's kernels write, so the caller reads it with no
+    copy."""
+    out = torch.empty((output_rows(epilogue, T, extra.get("member_bits", ())), words),
+                      dtype=torch.int32, pin_memory=plan[0][1][0].device.type == "cuda")
+    probe_plan_into(out, plan, row_idx, shift, T, K, epilogue, **extra)
+    return out
 
 def probe_floor(bank, row_idx, shift, T: int, K: int,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -24,12 +24,14 @@ requested chunk ranges: each is cut into pieces that lie in one shard
 segment-mode launch over up to 4 of a card's pieces, each read in place.
 Each launch stores its words straight into one joined bitmap, a
 page-locked host buffer taken per call from torch's pinned allocator, at
-the word offset of its first shard or piece. The probe wrappers then wait
-on one event a card (``_joined``); the two scans hand all their launches
-to one foreign call that issues every card's launches and waits for them
-(``kernels/scan.py::byte_scan_plan_into``). That bitmap is bit-for-bit the
-unsharded kernel's output because every shard is a contiguous range whose
-width is a multiple of 32
+the word offset of its first shard or piece. Every wrapper hands all its
+launches to one foreign call that issues every card's launches and waits
+for them (``kernels/probe.py::probe_plan_into``,
+``kernels/scan.py::byte_scan_plan_into``). The sparse scan also takes
+``mesh=None`` with one plain tensor: the single-device call, one launch
+through the same entry. That bitmap is
+bit-for-bit the unsharded kernel's output because every shard is a
+contiguous range whose width is a multiple of 32
 (128·n columns, 512·n chunks); the sparse scan's is the single-device
 sparse layout, each range's requested chunks one run of it. The probe
 arrays and needles are host arrays that travel in each launch's
@@ -58,7 +60,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..kernels.probe import MAX_SHARDS, probe_shards_into
+from ..kernels.probe import MAX_SHARDS, probe_plan
 from ..kernels.scan import CHUNK_BYTES, MAX_SEGMENTS, TILE_CHUNKS, byte_scan_plan_into
 
 BLOCK_AXIS = "blocks"
@@ -365,56 +367,39 @@ def card_layout(x: Sharded, axis: int, capacity: int) -> list[CardShards]:
     return out
 
 
-def _card_done(device: torch.device):
-    """An event recorded on the card's current stream after its launches
-    (None on the CPU, where the plain versions ran before they returned)."""
-    return torch.cuda.current_stream(device).record_event() if device.type == "cuda" else None
+def probe_launches(bank2d: Sharded) -> list:
+    """The probe wrappers' plan for ``probe_plan_into``: every launch of
+    ``card_layout``, card by card, as (its first shard's word offset, its
+    shards)."""
+    shards = _shards(bank2d)
+    return [(card.offsets[card.shards.index(run[0])], [shards[i] for i in run])
+            for card in card_layout(shards, 1, MAX_SHARDS) for run in card.launches]
 
 
-def _joined(shards: tuple, out_rows: int, words: int, plan: list, launch) -> torch.Tensor:
-    """The joined int32[out_rows, words] bitmap of ``launch(out, first_word,
-    arg)`` over ``plan``, ``[(device, [(first word, arg), ...]), ...]``:
-    every card's launches issued first, then one event a card waited for.
-    On cards the output is page-locked host memory the kernels write.
+# Each probe epilogue's sharded wrapper, the name its calls count under.
+PROBE_WRAPPERS = {"pack": "sharded_probe_packed", "reduce_and": "sharded_query_step",
+                  "clauses": "sharded_probe_clauses"}
 
-    A launch that raises part-way is re-raised only after every card that
-    was reached has been waited for: the kernels already queued write
-    ``out``, which torch's pinned allocator hands to the next caller once
-    it is freed."""
-    out = torch.empty((out_rows, words), dtype=torch.int32,
-                      pin_memory=shards[0].device.type == "cuda")
-    done = []
-    try:
-        for device, launches in plan:
-            try:
-                for first_word, arg in launches:
-                    launch(out, first_word, arg)
-            finally:
-                done.append(_card_done(device))
-    finally:
-        for event in done:
-            if event is not None:
-                event.synchronize()
+
+def sharded_probe(mesh: Mesh, bank2d: Sharded, row_idx, shift, T: int, K: int, epilogue: str,
+                  **extra) -> torch.Tensor:
+    """The probe with an epilogue of ``kernels.probe.EPILOGUE_MODES`` (its
+    arguments in ``extra`` as ``probe_plan_into`` takes them) on every
+    shard -> the joined int32[T or 1 or M, C/32] bitmap on the host: every
+    launch of ``probe_launches`` in one ``probe_plan`` call, into
+    page-locked host memory on cards, counted under the epilogue's wrapper
+    (``PROBE_WRAPPERS``). The three wrappers below are this call in the
+    reference's signatures."""
+    out = probe_plan(probe_launches(bank2d), logical_size(bank2d, 1) // 32, row_idx, shift, T,
+                     K, epilogue, **extra)
+    _count(PROBE_WRAPPERS[epilogue], _shards(bank2d))
     return out
-
-
-def _joined_call(x: Sharded, axis: int, out_rows: int, capacity: int, launch) -> torch.Tensor:
-    """The joined int32[out_rows, logical/32] bitmap of ``launch(out,
-    first_word, shards)`` over every launch of ``card_layout``."""
-    shards = _shards(x)
-    plan = [(card.device, [(card.offsets[card.shards.index(run[0])], [shards[i] for i in run])
-                           for run in card.launches])
-            for card in card_layout(x, axis, capacity)]
-    return _joined(shards, out_rows, logical_size(x, axis) // 32, plan, launch)
 
 
 def sharded_probe_packed(mesh: Mesh, bank2d: Sharded, row_idx, shift, T: int,
                          K: int) -> torch.Tensor:
     """Probe every shard's blocks -> packed int32[T, C/32] on the host."""
-    out = _joined_call(bank2d, 1, T, MAX_SHARDS, lambda o, w, banks: probe_shards_into(
-        o, w, banks, row_idx, shift, T, K, "pack"))
-    _count("sharded_probe_packed", _shards(bank2d))
-    return out
+    return sharded_probe(mesh, bank2d, row_idx, shift, T, K, "pack")
 
 
 def sharded_query_step(mesh: Mesh, bank2d: Sharded, row_idx, shift, and_bits: int,
@@ -425,10 +410,8 @@ def sharded_query_step(mesh: Mesh, bank2d: Sharded, row_idx, shift, and_bits: in
     Returns (packed survivors int32[C/32] on the host, total survivors):
     the total is one popcount of the joined words, the reference's
     ``psum``."""
-    out = _joined_call(bank2d, 1, 1, MAX_SHARDS, lambda o, w, banks: probe_shards_into(
-        o, w, banks, row_idx, shift, T, K, "reduce_and", and_bits=and_bits))
-    _count("sharded_query_step", _shards(bank2d))
-    total = int(np.unpackbits(out.numpy().view(np.uint8)).sum())
+    out = sharded_probe(mesh, bank2d, row_idx, shift, T, K, "reduce_and", and_bits=and_bits)
+    total = int.from_bytes(out.numpy().tobytes(), "little").bit_count()
     return out[0], total
 
 
@@ -437,12 +420,8 @@ def sharded_probe_clauses(mesh: Mesh, bank2d: Sharded, row_idx, shift,
                           T: int, K: int) -> torch.Tensor:
     """Probe and the fused CNF epilogue on every shard -> packed
     int32[M, C/32] on the host (bit masks as in ``probe_clauses_pack``)."""
-    out = _joined_call(
-        bank2d, 1, len(member_bits), MAX_SHARDS, lambda o, w, banks: probe_shards_into(
-            o, w, banks, row_idx, shift, T, K, "clauses", clause_bits=clause_bits,
-            member_bits=member_bits))
-    _count("sharded_probe_clauses", _shards(bank2d))
-    return out
+    return sharded_probe(mesh, bank2d, row_idx, shift, T, K, "clauses",
+                         clause_bits=clause_bits, member_bits=member_bits)
 
 
 def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,

@@ -8,13 +8,14 @@ Four forms of each sharded call, all bit-identical:
   the single-device kernel once per shard, each into its own device output, each shard's
   bitmap copied into a new page-locked buffer, every card's whole current
   stream synchronised, the buffers joined on the host with ``torch.cat``;
-- ``per_launch``: one launch a card over all of its shards
-  (``card_layout``), storing straight into one page-locked joined buffer
-  through its device address, each launch its own foreign call, then one
-  event a card waited for (``parallel/mesh.py::_joined``);
-- ``mapped``, the package's wrapper: for the probes the ``per_launch``
-  form itself; for the dense scan the same launches issued and waited for
-  in one foreign call (``kernels/scan.py::byte_scan_plan_into``);
+- ``per_launch``, the earlier joined form (kept here, not in the
+  package): one launch a card over all of its shards (``card_layout``),
+  storing straight into one page-locked joined buffer through its device
+  address, each launch its own foreign call, then one event a card waited
+  for (``joined``);
+- ``mapped``, the package's wrapper: the same launches issued and waited
+  for in one foreign call (``kernels/probe.py::probe_plan_into`` for the
+  probes, ``kernels/scan.py::byte_scan_plan_into`` for the dense scan);
 - ``copy``: the same launches into a device buffer a launch, each copied
   to its offset of the page-locked joined buffer by one strided
   ``cudaMemcpy2DAsync`` (built here from a few lines of CUDA C into a
@@ -38,7 +39,20 @@ host issues one by one, are each split into:
 - ``join_ms``: host time of the join.
 
 Events around every launch cost host time, so the breakdown is taken in
-calls of its own, not in the timed ones.
+calls of its own, not in the timed ones. For the probes, ``plan_split_us``
+splits the package's call into the layout and pinned buffer before it,
+the probe arrays' check, building the records, entering the foreign call,
+issuing every launch and event in it and waiting (monotonic-clock stamps
+the C entry takes).
+
+The single-device combined probe (``combined_turns``): the one-card
+engine's call of each epilogue, one launch on the unsharded bank, in two
+forms timed in turns (``COMBINED_FORMS`` and back, ``COMBINED_ROUNDS``
+times, with ``spread_verdict``'s reading of them): ``plan``, the
+package's (``kernels/probe.py::probe_plan`` over a one-launch plan, as
+``bloom/bank.py``'s combiner calls it with no mesh: one ``bs_probe_plan``
+call into a page-locked buffer), and ``copy``, the earlier one (one
+``bs_probe_launch`` into a new device tensor, then its copy to the host).
 
 The sparse case (K3-e, ``sharded_scan_segments``): three requested chunk
 ranges of a refscale block's size (one across a shard boundary, one inside
@@ -49,7 +63,7 @@ calls, their answers equal at every requested chunk, timed in turns
 
 - ``per_launch``, the earlier form (kept here, not in the package): the
   same launches, one ``byte_scan_ranges_into`` foreign call each, then an
-  event a card waited for (``parallel/mesh.py::_joined``);
+  event a card waited for (``joined``);
 - ``sparse``, the package's: every launch issued and waited for in one
   foreign call (``byte_scan_plan_into``);
 - ``one_card``: the single-device row cache's sparse call, the same entry
@@ -105,6 +119,8 @@ MEMBERS = [0b11]
 FORMS = ("old", "per_launch", "mapped", "copy")
 TRACED_FORMS = ("old", "per_launch", "copy")
 SPARSE_FORMS = ("per_launch", "sparse", "one_card", "single", "dense")
+COMBINED_FORMS = ("plan", "copy")
+COMBINED_ROUNDS = 5  # (plan, copy, copy, plan) rounds: ten turns a form
 COPY_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,6 +157,7 @@ class Case:
     single: Callable
     into: Callable
     wrapper: Callable
+    probe: dict | None = None  # a probe's arguments (row_idx, shift, T, K, epilogue, extra)
 
 
 def probe_case(label: str, mesh, shards: tuple, epilogue: str, rows, shifts, T: int,
@@ -164,8 +181,44 @@ def probe_case(label: str, mesh, shards: tuple, epilogue: str, rows, shifts, T: 
             mesh, shards, rows, shifts, clause_bits, member_bits, T, k)
     out_rows = {"pack": T, "reduce_and": 1}.get(epilogue, len(member_bits))
     return Case(label, shards, 1, out_rows, pk.MAX_SHARDS, single,
-                lambda o, w, b: pk.probe_shards_into(o, w, b, rows, shifts, T, k, epilogue,
-                                                     **extra), wrapper)
+                lambda o, w, b: probe_shards_into(o, w, b, rows, shifts, T, k, epilogue,
+                                                  **extra), wrapper,
+                {"row_idx": rows, "shift": shifts, "T": T, "K": k, "epilogue": epilogue,
+                 "extra": extra})
+
+
+def probe_shards_into(out: torch.Tensor, first_word: int, banks, row_idx, shift, T: int,
+                      k: int, epilogue: str, and_bits: int = 0, clause_bits=(),
+                      member_bits=()) -> None:
+    """One launch of the earlier per-launch form (the package's until its
+    one C call; kept here): ``bs_probe_launch`` over up to ``MAX_SHARDS``
+    banks of one card as one bank of their columns, on the card's current
+    stream, storing its words into ``out`` from ``first_word`` (page-locked
+    host memory through its device address, or a buffer on the card), with
+    the earlier form's checks and device guard; it waits for nothing and
+    counts nothing. On CPU banks: the plain versions into the same slices,
+    as the earlier form ran them."""
+    rows, shifts = pk._check(banks[0], row_idx, shift, T, k)
+    pk._check_plan(out, [(first_word, banks)], pk.output_rows(epilogue, T, member_bits))
+    if banks[0].device.type == "cpu":
+        pk._plain_into(out, first_word, banks, rows, shifts, T, k, epilogue, and_bits,
+                       clause_bits, member_bits)
+        return
+    clauses, n_clauses = pk._bits(clause_bits, pk.MAX_CLAUSES, "clauses")
+    members, n_members = pk._bits(member_bits, pk.MAX_MEMBERS, "members")
+    bank = banks[0]
+    R, C = bank.shape
+    table = (ctypes.c_void_p * len(banks))(*[b.data_ptr() for b in banks])
+    lib = pk.library()
+    with torch.cuda.device(bank.device):
+        err = lib.bs_probe_launch(
+            table, len(banks), R, C, rows.ctypes.data, shifts.ctypes.data, T, k,
+            pk.EPILOGUE_MODES[epilogue], int(and_bits) & 0xFFFFFFFF, clauses, n_clauses,
+            members, n_members, out.data_ptr(), out.shape[1], first_word,
+            out.device.type == "cpu", bank.device.index,
+            torch.cuda.current_stream(bank.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe kernel launch failed: cudaError {err}")
 
 
 def shards_into(out: torch.Tensor, first_word: int, shards, needles, lens, **kw) -> None:
@@ -218,6 +271,37 @@ def _mark(trace, *names: str) -> None:
     if trace is not None:
         for name in names:
             trace.mark(name)
+
+
+def _card_done(device: torch.device):
+    """An event recorded on the card's current stream after its launches
+    (None on the CPU, where the plain versions ran before they returned)."""
+    return torch.cuda.current_stream(device).record_event() if device.type == "cuda" else None
+
+
+def joined(shards: tuple, out_rows: int, words: int, plan: list, launch) -> torch.Tensor:
+    """The earlier joined form (the package's until its one C call): the
+    int32[out_rows, words] bitmap of ``launch(out, first_word, arg)`` over
+    ``plan``, ``[(device, [(first word, arg), ...]), ...]``, page-locked on
+    cards: every card's launches issued first, each its own foreign call,
+    then one event a card waited for. A launch that raises part-way is
+    re-raised only after every card that was reached has been waited
+    for."""
+    out = torch.empty((out_rows, words), dtype=torch.int32,
+                      pin_memory=shards[0].device.type == "cuda")
+    done = []
+    try:
+        for device, launches in plan:
+            try:
+                for first_word, arg in launches:
+                    launch(out, first_word, arg)
+            finally:
+                done.append(_card_done(device))
+    finally:
+        for event in done:
+            if event is not None:
+                event.synchronize()
+    return out
 
 
 def old_call(case: Case, trace: Trace | None = None) -> torch.Tensor:
@@ -449,8 +533,8 @@ class SparseCase:
                                      [r for _, r, _ in ranges], [n for _, _, n in ranges],
                                      self.needles, self.lens, **self._kw())
 
-        return pm._joined(self.shards, self.n_real, words, list(by_card.items()),
-                          launch), range_base
+        out = joined(self.shards, self.n_real, words, list(by_card.items()), launch)
+        return out, range_base
 
     def one_card(self) -> tuple:
         """The single-device row cache's sparse call over ``full``."""
@@ -540,6 +624,105 @@ def plan_split_us(case: SparseCase, reps: int = 200) -> dict:
                                           t2 - stamps[1])):
                 samples[name].append(ns / 1e3)
     return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def probe_plan_split_us(case: Case, reps: int = 200, layout=None) -> dict:
+    """Median host-clock us of the package's probe call (``case.wrapper``,
+    one ``probe_plan_into`` call) split into its steps, from the monotonic
+    clock around them and the two stamps the C entry takes: the launch
+    layout and the pinned buffer, the probe arrays' and the plan's checks,
+    building the records, entering the foreign call (ctypes), issuing every
+    launch and event inside it, and waiting for the cards until it
+    returns; beside them the whole wrapper call. ``layout`` makes the plan
+    from the shards (``pm.probe_launches``, the wrappers' layout, when
+    None)."""
+    a = case.probe
+    T, k, epilogue, extra = a["T"], a["K"], a["epilogue"], a["extra"]
+    devices = list(dict.fromkeys(s.device for s in case.shards))
+    words = pm.logical_size(case.shards, case.axis) // 32
+    stamps = (ctypes.c_int64 * 2)()
+    names = ("plan: layout and pinned buffer", "plan: probe arrays and plan checks",
+             "plan: records", "plan: entering the foreign call", "plan: issue in the call",
+             "plan: wait in the call")
+    samples: dict = {name: [] for name in names}
+    for rep in range(reps + 1):
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.monotonic_ns()
+        plan = (layout or pm.probe_launches)(case.shards)
+        out = torch.empty((case.out_rows, words), dtype=torch.int32, pin_memory=True)
+        t1 = time.monotonic_ns()
+        rows, shifts = pk._check(case.shards[0], a["row_idx"], a["shift"], T, k)
+        pk._check_plan(out, plan, case.out_rows)
+        t2 = time.monotonic_ns()
+        records = pk.plan_records(plan, {d: torch._C._cuda_getCurrentRawStream(d.index)
+                                         for d in devices})
+        t3 = time.monotonic_ns()
+        pk.plan_call(rows, shifts, T, k, epilogue, records, out, stamps=stamps, **extra)
+        t4 = time.monotonic_ns()
+        if rep:  # the first call is a warm-up
+            for name, ns in zip(names, (t1 - t0, t2 - t1, t3 - t2, stamps[0] - t3,
+                                        stamps[1] - stamps[0], t4 - stamps[1])):
+                samples[name].append(ns / 1e3)
+    result = {name: statistics.median(v) for name, v in samples.items()}
+    result["call: the package's wrapper"] = call_ms(case.wrapper, devices, reps) * 1e3
+    return result
+
+
+def spread_verdict(plan: list, copy: list) -> str:
+    """Where the plan form's turns lie against the copy form's: beyond both
+    forms' spread (every turn of one slower than every turn of the other),
+    or within them."""
+    if min(plan) > max(copy):
+        return "plan slower beyond both spreads"
+    if max(plan) < min(copy):
+        return "plan faster beyond both spreads"
+    return "within the spreads"
+
+
+def combined_turns(bank: torch.Tensor, row_idx, shift, T: int, k: int, epilogue: str,
+                   extra: dict, reps: int = 200, label: str = "", log=log,
+                   rounds: int = COMBINED_ROUNDS) -> dict:
+    """The single-device combined probe of one epilogue on the unsharded
+    ``bank`` (module doc): its two forms checked bit-identical, timed as a
+    caller sees them in turns (``COMBINED_FORMS`` and back, ``rounds``
+    times: each form's median of ``reps`` calls ``2 * rounds`` times), with
+    the turns' verdict (``spread_verdict``) and the plan call's host split
+    (``probe_plan_split_us`` on the one-launch plan)."""
+    dev = bank.device
+    single = {"pack": pk.probe_and_pack, "reduce_and": pk.probe_reduce_and_pack,
+              "clauses": pk.probe_clauses_pack}[epilogue]
+
+    def layout(shards):
+        return [(0, [shards[0]])]
+
+    def plan():  # bloom/bank.py::_probe with no mesh
+        return pk.probe_plan(layout((bank,)), bank.shape[1] // 32, row_idx, shift, T, k,
+                             epilogue, **extra)
+
+    def copy():
+        return single(bank, row_idx, shift, T, k, *extra.values()).cpu()
+
+    if not torch.equal(plan(), copy()):
+        raise AssertionError(f"{label}: the single-device plan call differs from the launch "
+                             "and copy")
+    calls = {"plan": plan, "copy": copy}
+    times: dict = {form: [] for form in COMBINED_FORMS}
+    for form in (COMBINED_FORMS + COMBINED_FORMS[::-1]) * rounds:
+        times[form].append(call_ms(calls[form], [dev], reps))
+    out_rows = pk.output_rows(epilogue, T, extra.get("member_bits", ()))
+    case = Case(label, (bank,), 1, out_rows, pk.MAX_SHARDS, None, None, plan,
+                {"row_idx": row_idx, "shift": shift, "T": T, "K": k, "epilogue": epilogue,
+                 "extra": extra})
+    result = {"call_ms": times, "median_ms": {f: statistics.median(t) for f, t in times.items()},
+              "verdict": spread_verdict(times["plan"], times["copy"]),
+              "plan_split_us": probe_plan_split_us(case, layout=layout)}
+    log(f"{label} on {dev}: calls " + "; ".join(
+        f"{f} " + "/".join(f"{v:.6f}" for v in t) for f, t in times.items())
+        + " ms; medians " + ", ".join(f"{f} {v:.6f}" for f, v in result["median_ms"].items())
+        + f"; {result['verdict']}; plan split us "
+        + ", ".join(f"{n} {v:.2f}" for n, v in result["plan_split_us"].items()))
+    return result
 
 
 def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
@@ -656,6 +839,10 @@ def turns(case: Case, copy_lib, reps: int = 25, log=log) -> dict:
     layout = pm.card_layout(case.shards, case.axis, case.capacity)
     result = {"call_ms": times, "breakdown": parts, "kernel_launches_per_call": launched,
               "cards": len(layout), "layout_launches": sum(len(c.launches) for c in layout)}
+    if case.probe is not None:
+        result["plan_split_us"] = probe_plan_split_us(case)
+        log(f"  mapped (one plan call): host us " + ", ".join(
+            f"{n} {v:.2f}" for n, v in result["plan_split_us"].items()))
     log(f"{case.label} on {len(case.shards)} shards, {len(devices)} card(s): calls "
         + ", ".join(f"{f} {t[0]:.6f}/{t[1]:.6f}" for f, t in times.items())
         + f" ms; kernel launches a call {launched}")
@@ -705,10 +892,10 @@ def host_costs(mesh, bank: tuple, stream: tuple, reps: int = 200) -> dict:
             pass
 
     def launch_on_card():
-        pk.probe_shards_into(on_card, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
+        probe_shards_into(on_card, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
 
     def launch_pinned():
-        pk.probe_shards_into(pinned, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
+        probe_shards_into(pinned, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
 
     def scan_pinned_launch():
         shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1, max_words=9)
@@ -780,6 +967,26 @@ def measure(device="cuda", shards: int = 4, reps: int = 25, seed: int = 0, log=l
             for d in mesh.distinct_devices():
                 with torch.cuda.device(d):
                     torch.cuda.empty_cache()
+    result["single-device combined"] = combined_cases(device, seed, log=log)
+    return result
+
+
+def combined_cases(device, seed: int, reps: int = 200, log=log) -> dict:
+    """``combined_turns`` at each epilogue's most launched main-path shape
+    on a random refscale bank of the one-card engine's width (C = 256)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    bank = random_words((REFSCALE_ROWS, 2 * SHARD_COLUMNS), gen, device)
+    rng = np.random.default_rng(seed + 1)
+    result = {}
+    for label, epilogue, T in (("pack, T = 4", "pack", 4), ("reduce, T = 1", "reduce_and", 1),
+                               ("clauses, T = 4, 2 clauses, 1 member", "clauses", 4)):
+        rows = rng.integers(0, REFSCALE_ROWS, T * K).astype(np.int32)
+        shifts = rng.integers(0, 32, T * K).astype(np.int32)
+        extra = {"pack": {}, "reduce_and": {"and_bits": (1 << T) - 1},
+                 "clauses": {"clause_bits": CLAUSES, "member_bits": MEMBERS}}[epilogue]
+        label = f"single-device combined {label}"
+        result[label] = combined_turns(bank, rows, shifts, T, K, epilogue, extra, reps, label,
+                                       log)
     return result
 
 

@@ -36,10 +36,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries went through the kernel;
 6. main-path shapes: the probe kernel against its plain version at every
    shape (C, T, members, clauses) the engine phase launched and phase 3 did
-   not cover; each epilogue's most launched shape is timed and reported;
-   with ``--old-probe`` an earlier probe kernel (one bank a launch, the
-   probe arrays in its parameters) against this one in turns at every
-   phase-3 shape,
+   not cover (here and in phase 3 the single-device combiner's plan call,
+   ``bs_probe_plan`` with one launch into a page-locked buffer, must equal
+   both); each epilogue's most launched shape is timed and reported (its
+   ``ms``: the kernel storing into a page-locked buffer, as the plan call's
+   launch does, ``pinned_launch_ms``; beside it the launch into a device
+   tensor), and the engine's combined probe call at that shape is timed as
+   a caller sees it in turns against the earlier launch into a device
+   tensor and its copy (``combined_call_turns``: ten turns a form, their
+   verdict and the plan call's host split);
+   with ``--old-probe`` an earlier probe kernel (the probe arrays in its
+   parameters; one bank a launch, or the later shard table called with
+   one bank) against this one in turns at every phase-3 shape,
    each epilogue's most launched shape and the bench shape
    (``turns_against_old_probe``);
 7. serving engine: the same dataset in serving mode (the row stream pinned
@@ -66,12 +74,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same logical content and to the plain version; then each wrapper
    at its main-path shape in four forms timed in turns as a caller sees
    them (``tools/exp_mesh_join.py``: the package's wrapper, one launch a
-   card into the page-locked joined bitmap, for the dense scan all of them
-   issued and waited for in one foreign call; the same launches each its
-   own foreign call; the earlier launch, copy and host join a shard; and a
-   device buffer with one strided copy a launch), the breakdown of each
-   form the host issues launch by launch (issue, each card's launch spans,
-   copies, wait, join) and the
+   card into the page-locked joined bitmap, all of them issued and waited
+   for in one foreign call, ``bs_probe_plan`` or ``bs_scan_plan``; the
+   same launches each its own foreign call; the earlier launch, copy and
+   host join a shard; and a device buffer with one strided copy a
+   launch), the breakdown of each form the host issues launch by launch
+   (issue, each card's launch spans, copies, wait, join), for the probes
+   the plan call's host split (``plan_split_us``) and the
    kernel launches one sharded call makes, beside the single-device
    call and device times of the unsharded launch and of one launch over a
    card's shards; the sparse sharded scan (``sharded_scan_segments``, one
@@ -157,14 +166,15 @@ SCAN_MODES = {
 }
 MESH_PY = "bloomsearch_tpu/parallel/mesh.py"
 MESH_WRAPPERS = {
-    # name: (source, TPU function it replaces)
-    "sharded_probe_packed": (PROBE_SOURCE, f"{MESH_PY}:121"),
-    "sharded_query_step": (PROBE_SOURCE, f"{MESH_PY}:167"),
-    "sharded_probe_clauses": (PROBE_SOURCE, f"{MESH_PY}:215"),
-    "sharded_scan_all_rows": (SCAN_SOURCE, f"{MESH_PY}:330"),
+    # name: (source, the C entry that issues every launch of a call, TPU
+    # function it replaces)
+    "sharded_probe_packed": (PROBE_SOURCE, "bs_probe_plan", f"{MESH_PY}:121"),
+    "sharded_query_step": (PROBE_SOURCE, "bs_probe_plan", f"{MESH_PY}:167"),
+    "sharded_probe_clauses": (PROBE_SOURCE, "bs_probe_plan", f"{MESH_PY}:215"),
+    "sharded_scan_all_rows": (SCAN_SOURCE, "bs_scan_plan", f"{MESH_PY}:330"),
     # The reference scans every shard in full on a mesh; this is its
     # single-device scan_segments over the shards.
-    "sharded_scan_segments": (SCAN_SOURCE, "bloomsearch_tpu/rowcache.py:299"),
+    "sharded_scan_segments": (SCAN_SOURCE, "bs_scan_plan", "bloomsearch_tpu/rowcache.py:299"),
 }
 MESH_SHARDS = 4
 PHASE3_T = (1, 2, 3, 4, 5, 8, 12, 16)  # K1's term counts at the refscale width
@@ -382,13 +392,58 @@ def plain_epilogue(pk, name: str, bank, rows, shifts, T: int, extra: tuple, k: i
     return pk.pack_bitmap_plain(match)
 
 
+def epilogue_kwargs(name: str, extra: tuple) -> dict:
+    """``epilogue_args``' tuple for epilogue ``name`` as the plan entry's
+    keyword arguments."""
+    return dict(zip({"probe_reduce_and_pack": ("and_bits",),
+                     "probe_clauses_pack": ("clause_bits", "member_bits")}.get(name, ()), extra))
+
+
+def single_device_call(name: str, bank, rows, shifts, T: int, extra: tuple, k: int = K):
+    """The single-device combiner's call of epilogue ``name``
+    (``bloom/bank.py::_probe`` with no mesh: one launch through the plan
+    entry into a page-locked buffer) -> its words on the host, as the
+    kernel packs them."""
+    from bloomsearch_tpu_torch.kernels import probe as pk
+
+    return pk.probe_plan([(0, [bank])], bank.shape[1] // 32, rows, shifts, T, k,
+                         EPILOGUES[name][0], **epilogue_kwargs(name, extra))
+
+
+def pinned_launch_ms(bank, sets: list, T: int, name: str, extra: tuple, plain,
+                     reps: int) -> float:
+    """Device time of the main path's launch: the kernel storing its words
+    into a page-locked host buffer through its device address, as the plan
+    call's one launch does. The plan call waits inside itself, so an event
+    after it would hold the host's wake-up too: the same kernel, the same
+    instantiation and output, is launched here through the single-launch
+    entry into that buffer (``tools/exp_mesh_join.probe_shards_into``)
+    between CUDA events behind a spin kernel (``event_ms``). The last
+    launch's words must equal the plain version's."""
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    counter = EPILOGUES[name][0]
+    kw = epilogue_kwargs(name, extra)
+    C = bank.shape[1]
+    out = torch.empty((pk.output_rows(counter, T, kw.get("member_bits", ())), C // 32),
+                      dtype=torch.int32, pin_memory=True)
+    ms = event_ms(lambda i: mj.probe_shards_into(out, 0, [bank], *sets[i], T, K, counter, **kw),
+                  reps, hide_host=True)
+    if not torch.equal(out, plain(*sets[reps - 1]).cpu()):
+        raise AssertionError(f"{name} T={T} C={C}: the launch into a page-locked buffer "
+                             "disagrees with the plain version")
+    return ms
+
+
 def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
                 clauses: int = 16, members: int = 16, time_it: bool = True) -> dict:
     """Hold one epilogue against its plain version at one shape and time
-    both (``time_it``). Each launch probes fresh random rows, so the rows
-    come from device memory as a query's would, not from the L2 cache; the
-    probe arrays are host arrays, as the engine passes them (the plain
-    version takes copies on the card)."""
+    both (``time_it``); the single-device combiner's plan call
+    (``single_device_call``) must equal them too. Each launch probes fresh
+    random rows, so the rows come from device memory as a query's would,
+    not from the L2 cache; the probe arrays are host arrays, as the engine
+    passes them (the plain version takes copies on the card)."""
     R, C = bank.shape
     reps = reps if time_it else 3
     sets = probe_sets(gen, R, T, reps + 1)
@@ -402,19 +457,24 @@ def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
     for rows, shifts in sets[:4]:
         got = kernel(bank, rows, shifts, T, K, *extra)
         want = plain(rows, shifts)
+        one = single_device_call(name, bank, rows, shifts, T, extra)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         if err or not torch.equal(got, want):
             raise AssertionError(f"{name} T={T} C={C}: kernel disagrees with plain version")
+        if not torch.equal(one, want.cpu()):
+            raise AssertionError(f"{name} T={T} C={C}: the single-device plan call disagrees "
+                                 "with the plain version")
         max_err = max(max_err, err)
     key = shape_key(name, C, T, clauses, members)
     shape = f"{name} R={R} C={C} T={T} K={K}" + (
         f" clauses={clauses} members={members}" if name == "probe_clauses_pack" else "")
     if not time_it:
-        log(f"kernel {shape}: bit-identical")
+        log(f"kernel {shape}: bit-identical (the single launch and the plan call)")
         return {"key": key, "max_abs_err": max_err}
     ms = event_ms(lambda i: kernel(bank, *sets[i], T, K, *extra), reps, hide_host=True)
     call_ms = event_ms(lambda i: kernel(bank, *sets[i], T, K, *extra), reps, hide_host=False)
+    pinned_ms = pinned_launch_ms(bank, sets, T, name, extra, plain, reps)
     on_card = [tuple(a.to(dev) for a in pair) for pair in sets]
     plain_ms = event_ms(lambda i: plain(*on_card[i]), reps, hide_host=True)
     out_rows = key[3]
@@ -424,10 +484,11 @@ def kernel_case(pk, bank, T: int, name: str, gen, dev, reps: int = 25,
     ops = 3 * T * K * C
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
-    log(f"kernel {shape}: kernel_ms={ms:.6f} call_ms={call_ms:.6f} "
+    log(f"kernel {shape}: kernel_ms={ms:.6f} pinned_ms={pinned_ms:.6f} call_ms={call_ms:.6f} "
         f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}) bytes={nbytes} "
-        f"bit-identical")
-    return {"key": key, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        f"bit-identical (the single launch and the plan call)")
+    return {"key": key, "ms": ms, "pinned_ms": pinned_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err,
             "bytes": nbytes}
 
@@ -490,10 +551,12 @@ def phase_main_shapes(dev, launched: dict, cases: dict,
 
 def old_probe_launcher(source: str):
     """An earlier probe kernel, built from ``source``: a ``csrc/probe.cu``
-    whose ``bs_probe_launch`` takes one bank and the host probe arrays in
-    the launch's parameters, its output a new tensor (the interface before
-    the shard table). -> launch(bank, rows, shifts, T, k, name, extra) on
-    the current stream, ``rows`` and ``shifts`` host int32 arrays."""
+    whose ``bs_probe_launch`` takes the host probe arrays in the launch's
+    parameters and either one bank (the interface before the shard table)
+    or a table of banks with an output stride (the later one, called here
+    with one bank and its own stride), its output a new tensor. ->
+    launch(bank, rows, shifts, T, k, name, extra) on the current stream,
+    ``rows`` and ``shifts`` host int32 arrays."""
     import ctypes
 
     from bloomsearch_tpu_torch.kernels import build
@@ -504,8 +567,15 @@ def old_probe_launcher(source: str):
     log(f"old probe kernel built from {source}: "
         f"{[ln.strip() for ln in report.splitlines() if 'registers' in ln]}")
     lib = ctypes.CDLL(path)
+    with open(source) as fh:
+        table_form = "const int32_t* const* banks" in fh.read()
     p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
-    lib.bs_probe_launch.argtypes = [p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32, p, p]
+    if table_form:
+        lib.bs_probe_launch.argtypes = [p, i32, i64, i64, p, p, i32, i32, i32, u32, p, i32, p,
+                                        i32, p, i64, i64, i32, i32, p]
+    else:
+        lib.bs_probe_launch.argtypes = [p, i64, i64, p, p, i32, i32, i32, u32, p, i32, p, i32,
+                                        p, p]
     lib.bs_probe_launch.restype = ctypes.c_int
     modes = {"probe_and_pack": pk.MODE_PACK, "probe_reduce_and_pack": pk.MODE_REDUCE,
              "probe_clauses_pack": pk.MODE_CLAUSES}
@@ -520,10 +590,15 @@ def old_probe_launcher(source: str):
         shifts = np.ascontiguousarray(shifts, dtype=np.int32)
         R, C = bank.shape
         out = torch.empty((out_rows, C // 32), dtype=torch.int32, device=bank.device)
-        err = lib.bs_probe_launch(
-            bank.data_ptr(), R, C, rows.ctypes.data, shifts.ctypes.data, T, k, modes[name],
-            and_bits, cb, len(clause_bits), mb, len(member_bits), out.data_ptr(),
-            torch.cuda.current_stream(bank.device).cuda_stream)
+        stream = torch.cuda.current_stream(bank.device).cuda_stream
+        args = (rows.ctypes.data, shifts.ctypes.data, T, k, modes[name], and_bits, cb,
+                len(clause_bits), mb, len(member_bits), out.data_ptr())
+        if table_form:
+            table = (ctypes.c_void_p * 1)(bank.data_ptr())
+            err = lib.bs_probe_launch(table, 1, R, C, *args, C // 32, 0, 0, bank.device.index,
+                                      stream)
+        else:
+            err = lib.bs_probe_launch(bank.data_ptr(), R, C, *args, stream)
         if err:
             raise RuntimeError(f"old probe kernel launch failed: cudaError {err}")
         return out
@@ -1879,9 +1954,11 @@ def time_mesh_case(label: str, form, copy_lib, unsharded_call, kernel, full, pla
         "cards": turns["cards"], "kernel_launches_per_call": turns["kernel_launches_per_call"],
         "breakdown": turns["breakdown"],
     }
+    if "plan_split_us" in turns:
+        case["plan_split_us"] = turns["plan_split_us"]
     log(f"mesh {label}: " + " ".join(
         f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}" for k, v in case.items()
-        if k != "breakdown"))
+        if k not in ("breakdown", "plan_split_us")))
     return case
 
 
@@ -2217,6 +2294,8 @@ def probe_phases(dev, args, cases: dict, done) -> list[dict]:
         + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
     main_cases = phase_main_shapes(dev, launched, cases)
     done("main-path shapes")
+    combined = combined_call_turns(dev, main_cases)
+    done("combined calls")
     if args.old_probe:
         log(json.dumps({"old_probe": turns_against_old_probe(dev, args.old_probe, main_cases)}))
         done("probe turns")
@@ -2226,13 +2305,53 @@ def probe_phases(dev, args, cases: dict, done) -> list[dict]:
             raise AssertionError(f"{name} was not launched on the main path")
         case = main_cases[counter]
         log(f"{name}: main-path shape {case['key']} reported")
+        turns = combined[counter]
         kernels.append({
-            "name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": PROBE_SOURCE, "entry": "bs_probe_plan",
+            "replaces": replaces,
             "launches": engine["launches"][counter], "max_abs_err": case["max_abs_err"],
-            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "ms": case["pinned_ms"], "device_out_ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
+            "combined_call_ms": turns["call_ms"]["plan"],
+            "combined_copy_ms": turns["call_ms"]["copy"],
+            "combined_verdict": turns["verdict"],
+            "combined_plan_split_us": turns["plan_split_us"],
         })
     return kernels
+
+
+def combined_call_turns(dev, main_cases: dict, refscale_rows: int = REFSCALE_ROWS,
+                        reps: int = 200) -> dict:
+    """The single-device engine's combined probe call as a caller sees it,
+    at each epilogue's most launched main-path shape (``main_cases``) on a
+    random refscale bank: the package's plan call into a page-locked
+    buffer against the earlier launch into a device tensor and its copy,
+    bit-identical, in turns with the plan call's host split
+    (``tools/exp_mesh_join.combined_turns``) -> {launch counter: turns}."""
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    name_of = {counter: name for name, (counter, _) in EPILOGUES.items()}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    banks: dict = {}
+    result = {}
+    for counter, case in sorted(main_cases.items()):
+        _, C, T, rows, clauses = case["key"]
+        if C not in banks:
+            banks[C] = random_bank(refscale_rows, C, gen, dev)
+        name = name_of[counter]
+        extra = epilogue_args(name, T, max(clauses, 1), rows)
+        kw = {"probe_reduce_and_pack": lambda: {"and_bits": extra[0]},
+              "probe_clauses_pack": lambda: {"clause_bits": extra[0], "member_bits": extra[1]},
+              }.get(name, dict)()
+        r, s = (a.numpy() for a in probe_sets(gen, refscale_rows, T, 1)[0])
+        result[counter] = mj.combined_turns(
+            banks[C], r, s, T, K, counter, kw, reps,
+            f"combined {name} C={C} T={T}" + (f" clauses={clauses} members={rows}"
+                                              if counter == "clauses" else ""), log)
+    banks.clear()
+    torch.cuda.empty_cache()
+    return result
 
 
 def main(argv=None) -> int:
@@ -2301,17 +2420,18 @@ def main(argv=None) -> int:
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
         })
-    for name, (source, replaces) in MESH_WRAPPERS.items():
+    for name, (source, entry, replaces) in MESH_WRAPPERS.items():
         case = mesh_entries[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "entry": entry,
+            "replaces": replaces,
             "launches": case["launches"], "max_abs_err": case["max_abs_err"],
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None, "shards": MESH_SHARDS,
             **{k: case[k] for k in ("old_ms", "mapped_ms", "copy_landing_ms", "unsharded_ms",
                                     "unsharded_call_ms", "card_launch_ms", "sparse_ms",
                                     "dense_call_ms", "per_launch_ms", "one_card_call_ms",
-                                    "single_device_call_ms", "pieces",
+                                    "single_device_call_ms", "pieces", "plan_split_us",
                                     "launches_per_card", "cards", "kernel_launches_per_call")
                if k in case},
         })

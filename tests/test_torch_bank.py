@@ -179,6 +179,41 @@ class TestProbeGroups:
         assert any(m.any() for m in got.values())
         assert_same_stats(*pair)
 
+    @pytest.mark.parametrize("mesh_devices", [1, 4])
+    @pytest.mark.parametrize("mode", ["plain", "reduce_and", "clauses"])
+    def test_each_epilogue_is_one_plan_call_with_and_without_a_mesh(
+            self, mode, mesh_devices, monkeypatch):
+        """The combiner on one device (no mesh) and on a 4-shard CPU mesh:
+        every epilogue equals the JAX backend on the same mesh size, and
+        each combined probe is one ``probe_plan_into`` call of one launch
+        over every shard the device holds."""
+        from bloomsearch_tpu_torch.kernels import probe as pk
+
+        pair = (jbank.DeviceProbeBackend(mesh_devices=mesh_devices),
+                tbank.DeviceProbeBackend(device="cpu", mesh_devices=mesh_devices))
+        calls = []
+        orig = pk.probe_plan_into
+
+        def spy(out, plan, *a, **kw):
+            calls.append((a[-1], [len(banks) for _, banks in plan], out.shape[0]))
+            return orig(out, plan, *a, **kw)
+
+        monkeypatch.setattr(pk, "probe_plan_into", spy)
+        banks = {b"F1": tagged("p", 150), b"F2": tagged("q", 90)}
+        requests = [(p, 0, MK, (lambda b=b: b)) for p, b in banks.items()]
+        if mode == "clauses":
+            expr, terms = make_terms(("match", bs.or_(bs.token("tp1"), bs.token("tq4"))))
+            kw = {"clause_mask": compile_cnf_clauses(expr.expression, terms)}
+        else:
+            _, terms = make_terms(("token", "shared"), ("field", "q3"))
+            kw = {"reduce_and": mode == "reduce_and"}
+        got = probe_both(pair, requests, terms, **kw)
+        assert any(m.any() for m in got.values()) and not all(m.all() for m in got.values())
+        epilogue, rows = {"plain": ("pack", len(terms)), "reduce_and": ("reduce_and", 1),
+                          "clauses": ("clauses", 1)}[mode]
+        assert calls == [(epilogue, [mesh_devices], rows)]
+        assert_same_stats(*pair)
+
     def test_more_than_16_terms_split(self):
         pair = backends()
         tokens = [f"t{i}" for i in range(20)]
@@ -245,20 +280,20 @@ class TestRealTermCount:
         """Odd term counts launch as they are: the port's combiner passes
         the batch's real term count (no power-of-two padding terms, whole
         warps of wasted loads on the card), and every result still equals
-        the JAX bank's. The wrappers are spied on as a card counts them."""
+        the JAX bank's. The one plan call of each probe is spied on, its
+        launches counted as a card counts them."""
         from bloomsearch_tpu_torch.kernels import probe as pk
 
-        counters = {"probe_and_pack": "pack", "probe_reduce_and_pack": "reduce_and",
-                    "probe_clauses_pack": "clauses"}
         monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-        for name, counter in counters.items():
-            def spy(bank, rows, shifts, T, K, *extra, _orig=getattr(tbank, name), _c=counter):
-                assert isinstance(rows, np.ndarray) and isinstance(shifts, np.ndarray)
-                out_rows = {"pack": T, "reduce_and": 1}.get(_c) or len(extra[1])
-                pk._count(_c, bank.shape[1], T, out_rows, len(extra[0]) if _c == "clauses" else 0)
-                return _orig(bank, rows, shifts, T, K, *extra)
 
-            monkeypatch.setattr(tbank, name, spy)
+        def spy(out, plan, rows, shifts, T, K, epilogue, _orig=pk.probe_plan_into, **extra):
+            assert isinstance(rows, np.ndarray) and isinstance(shifts, np.ndarray)
+            for _, banks in plan:
+                pk._count(epilogue, len(banks) * banks[0].shape[1], T, out.shape[0],
+                          len(extra.get("clause_bits", ())))
+            return _orig(out, plan, rows, shifts, T, K, epilogue, **extra)
+
+        monkeypatch.setattr(pk, "probe_plan_into", spy)
         pair = backends()
         bank = make_bank([([f"f{i}"], [f"t{i}", "shared", f"u{i % 3}"], []) for i in range(20)])
         req = [(b"F", 0, MK, lambda: bank)]

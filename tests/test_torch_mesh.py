@@ -538,17 +538,18 @@ def test_backend_on_a_mesh_matches_reference_and_warms_every_shard(monkeypatch):
     for name, entry in tback.stats()["superbanks"].items():
         assert entry["capacity"] == jback.stats()["superbanks"][name]["capacity"] == 512
     seen = []
-    orig = pm.probe_shards_into
+    orig = pk.probe_plan_into
     monkeypatch.setattr(
-        pm, "probe_shards_into",
-        lambda out, first, banks, *a, **kw: seen.append(
-            (a[-1], first, [b.shape for b in banks])) or orig(out, first, banks, *a, **kw),
+        pk, "probe_plan_into",
+        lambda out, plan, *a, **kw: seen.append(
+            (a[-1], [(first, [b.shape for b in banks]) for first, banks in plan]))
+        or orig(out, plan, *a, **kw),
     )
     assert tback.precompile_probe_programs() == 3
-    # One launch an epilogue covers the four CPU shards (one device).
-    assert sorted(e for e, _, _ in seen) == ["clauses", "pack", "reduce_and"]
-    assert all(first == 0 and shapes == [(3 * PARAMS.num_words, 128)] * 4
-               for _, first, shapes in seen)
+    # One plan call an epilogue, its one launch over the four CPU shards
+    # (one device).
+    assert sorted(e for e, _ in seen) == ["clauses", "pack", "reduce_and"]
+    assert all(launches == [(0, [(3 * PARAMS.num_words, 128)] * 4)] for _, launches in seen)
 
 
 def test_rowcache_from_a_mesh_reference_scans_the_same():
@@ -893,40 +894,128 @@ def test_dense_plan_records_follow_the_card_layout(n, monkeypatch):
                                       run[0] * shard_rows // 32)
 
 
-def test_joined_waits_for_every_card_before_a_launch_failure_is_raised(monkeypatch):
-    """A probe wrapper's launch that raises on the second card of two:
-    ``_joined`` waits for the first card (and the second, which may have
-    queued launches before the failure) before the error reaches the
-    caller, so no kernel is left writing a buffer the allocator may hand
-    out again."""
-    events = []
+PROBE_WRAPPERS = {
+    # wrapper: (its call on (mesh, bank2d, rows, shifts), epilogue, output rows)
+    "sharded_probe_packed": (
+        lambda m, b, r, s: pm.sharded_probe_packed(m, b, r, s, 3, 2), "pack", 3),
+    "sharded_query_step": (
+        lambda m, b, r, s: pm.sharded_query_step(m, b, r, s, 0b101, 3, 2)[0][None, :],
+        "reduce_and", 1),
+    "sharded_probe_clauses": (
+        lambda m, b, r, s: pm.sharded_probe_clauses(m, b, r, s, [0b011, 0b100], [0b11, 0b10],
+                                                    3, 2), "clauses", 2),
+}
 
-    class Event:
-        def __init__(self, device):
-            self.device = device
 
-        def synchronize(self):
-            events.append(("waited", self.device))
+def probe_plan_spy(monkeypatch) -> list:
+    """Record each ``probe_plan_into`` call's plan, epilogue and output."""
+    calls = []
+    orig = pk.probe_plan_into
 
-    def card_done(device):
-        events.append(("recorded", device))
-        return Event(device)
+    def spy(out, plan, *a, **kw):
+        calls.append((plan, a[-1], out))
+        return orig(out, plan, *a, **kw)
 
-    def launch(out, first_word, arg):
-        events.append(("launched", arg))
-        if arg == "b1":
-            raise RuntimeError("probe kernel launch failed: cudaError 700")
+    monkeypatch.setattr(pk, "probe_plan_into", spy)
+    return calls
 
-    monkeypatch.setattr(pm, "_card_done", card_done)
-    shards = (torch.zeros((4, 128), dtype=torch.int32),) * 2
-    plan = [("card 0", [(0, "a0"), (2, "a1")]), ("card 1", [(4, "b0"), (5, "b1"), (6, "b2")])]
+
+def probe_record_fields(rec) -> tuple:
+    n = rec.n_shards
+    return (rec.device, n, rec.stream, list(rec.shards[:n]), rec.R, rec.C, rec.first_word)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 10])
+@pytest.mark.parametrize("name", list(PROBE_WRAPPERS))
+def test_probe_plan_records_follow_the_card_layout(n, name, monkeypatch):
+    """Each probe wrapper on n CPU shards (one: a one-shard mesh) makes one
+    ``probe_plan_into`` call whose plan is ``card_layout``'s launches in
+    order, up to 8 shards a launch, each at its first shard's word offset;
+    the C records built from it hold each launch's shard pointers, R, C,
+    first word and stream; the joined words equal the plain version on the
+    banks side by side."""
+    call, epilogue, out_rows = PROBE_WRAPPERS[name]
+    rng = np.random.default_rng(n)
+    bank = rng.integers(0, 2**32, size=(12, 128 * n), dtype=np.uint32)
+    bank[:, ::3] = 0xFFFFFFFF
+    rows = rng.integers(0, 12, size=6).astype(np.int32)
+    shifts = rng.integers(0, 32, size=6).astype(np.int32)
+    tmesh = pm.default_mesh(n, "cpu")
+    shards = bank2d = pm.shard_bank(tmesh, bank)
+    assert isinstance(shards, tuple) and len(shards) == n
+    calls = probe_plan_spy(monkeypatch)
+    got = call(tmesh, bank2d, rows, shifts)
+    (plan, called_as, out), = calls
+    runs = [run for card in pm.card_layout(bank2d, 1, pk.MAX_SHARDS) for run in card.launches]
+    assert called_as == epilogue and len(plan) == len(runs) == -(-n // pk.MAX_SHARDS)
+    assert out.shape == (out_rows, 4 * n) and not out.is_pinned()
+    for (first, banks), run in zip(plan, runs):
+        assert first == 4 * run[0] and [b.data_ptr() for b in banks] == [
+            shards[i].data_ptr() for i in run]
+    for rec, run in zip(pk.plan_records(plan, {torch.device("cpu"): 9}), runs):
+        assert probe_record_fields(rec) == (-1, len(run), 9, [shards[i].data_ptr() for i in run],
+                                            12, 128, 4 * run[0])
+    flat = torch.from_numpy(bank.view(np.int32))
+    single = {"pack": lambda: pk.probe_and_pack(flat, rows, shifts, 3, 2),
+              "reduce_and": lambda: pk.probe_reduce_and_pack(flat, rows, shifts, 3, 2, 0b101),
+              "clauses": lambda: pk.probe_clauses_pack(flat, rows, shifts, 3, 2, [0b011, 0b100],
+                                                       [0b11, 0b10])}[epilogue]
+    assert torch.equal(got, single())
+
+
+class StandInBank:
+    """What ``probe_plan_into`` reads of a bank on a card: shape, type,
+    device, contiguity and its address (no card needed)."""
+
+    def __init__(self, device: str, address: int):
+        self.device, self.address = torch.device(device), address
+        self.shape, self.dtype = torch.Size((12, 128)), torch.int32
+
+    def dim(self) -> int:
+        return 2
+
+    def is_contiguous(self) -> bool:
+        return True
+
+    def data_ptr(self) -> int:
+        return self.address
+
+
+def test_a_plan_that_fails_part_way_raises_and_counts_nothing(monkeypatch):
+    """A probe wrapper over two cards whose plan call fails part-way (a
+    stub library stands in for the C entry, which waits for every card it
+    reached before it returns the error): the wrapper makes the one
+    foreign call with both cards' records, raises the error, returns no
+    buffer and counts no launch and no sharded call."""
+    seen = []
+
+    class Stub:
+        def bs_probe_plan(self, rows, shifts, T, K, mode, and_bits, clauses, n_clauses, members,
+                          n_members, records, n_launches, out, out_stride, on_host, stamps):
+            seen.append(([(r.device, r.n_shards, r.first_word) for r in records[:n_launches]],
+                         mode, and_bits, out_stride, on_host))
+            return 700  # cudaErrorIllegalAddress on the second card
+
+    real_empty = torch.empty
+    pinned = []
+
+    def empty(*shape, pin_memory=False, **kw):
+        pinned.append(pin_memory)
+        return real_empty(*shape, **kw)
+
+    monkeypatch.setattr(pk, "library", lambda: Stub())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 100 + index,
+                        raising=False)
+    monkeypatch.setattr(pm.torch, "empty", empty)
+    mesh = pm.Mesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    shards = (StandInBank("cuda:0", 0x1000), StandInBank("cuda:1", 0x2000))
+    pm.reset_launch_counts()
+    pk.reset_launch_counts()
+    rows = np.zeros(3, np.int32)
+    got = []
     with pytest.raises(RuntimeError, match="cudaError 700"):
-        pm._joined(shards, 1, 8, plan, launch)
-    assert events == [("launched", "a0"), ("launched", "a1"), ("recorded", "card 0"),
-                      ("launched", "b0"), ("launched", "b1"), ("recorded", "card 1"),
-                      ("waited", "card 0"), ("waited", "card 1")]
-    # Without a failure: every launch, then one wait a card.
-    events.clear()
-    pm._joined(shards, 1, 8, plan[:1], launch)
-    assert events == [("launched", "a0"), ("launched", "a1"), ("recorded", "card 0"),
-                      ("waited", "card 0")]
+        got.append(pm.sharded_query_step(mesh, shards, rows, rows, 0b111, 3, 1))
+    assert not got and pinned == [True]
+    assert seen == [([(0, 1, 0), (1, 1, 4)], pk.MODE_REDUCE, 0b111, 8, True)]
+    assert sum(pk.launch_counts().values()) == 0
+    assert pm.launch_counts() == dict.fromkeys(pm.launch_counts(), 0)

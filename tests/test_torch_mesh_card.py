@@ -207,7 +207,7 @@ def test_pageable_output_is_refused(dev):
     pageable = torch.zeros((T, 4), dtype=torch.int32)
     pk.reset_launch_counts()
     with pytest.raises(RuntimeError, match="cudaError"):
-        pk.probe_shards_into(pageable, 0, [bank], rows, rows, T, K, "pack")
+        pk.probe_plan_into(pageable, [(0, [bank])], rows, rows, T, K, "pack")
     stream = torch.zeros((64, 128), dtype=torch.int32, device=dev)
     needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
     with pytest.raises(RuntimeError, match="cudaError"):
@@ -216,8 +216,7 @@ def test_pageable_output_is_refused(dev):
     assert sum(pk.launch_counts().values()) == 0
     # The same outputs page-locked: the launches run and write every word.
     pinned = torch.full((T, 4), -7, dtype=torch.int32).pin_memory()
-    pk.probe_shards_into(pinned, 0, [bank], rows, rows, T, K, "pack")
-    torch.cuda.synchronize()
+    pk.probe_plan_into(pinned, [(0, [bank])], rows, rows, T, K, "pack")
     assert not pinned.any()  # an all-zero bank matches nowhere
 
 
@@ -233,8 +232,7 @@ def test_wide_output_keeps_other_words(dev):
     for host in (False, True):
         out = torch.full((T, 11), 0x5A5A5A5A, dtype=torch.int32)
         out = out.pin_memory() if host else out.to(dev)
-        pk.probe_shards_into(out, 2, banks, rows, shifts, T, K, "pack")
-        torch.cuda.synchronize()
+        pk.probe_plan_into(out, [(2, banks)], rows, shifts, T, K, "pack")
         out = out.cpu()
         want = torch.cat([pk.probe_and_pack(b, rows, shifts, T, K).cpu() for b in banks], dim=1)
         assert torch.equal(out[:, 2:8], want)

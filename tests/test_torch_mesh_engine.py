@@ -18,6 +18,7 @@ import bloomsearch_tpu as bs  # noqa: E402
 import bloomsearch_tpu_torch as bt  # noqa: E402
 import bloomsearch_tpu_torch.rowcache as rc  # noqa: E402
 from bloomsearch_tpu_torch.bloom import bank as tbank  # noqa: E402
+from bloomsearch_tpu_torch.kernels import probe as pk  # noqa: E402
 from bloomsearch_tpu_torch.parallel import mesh as pm  # noqa: E402
 
 from test_torch_engine import BATCHES, QUERIES, TIMEOUT, multiset  # noqa: E402
@@ -298,16 +299,16 @@ def test_mesh_shard_launch_failure_fails_the_query(tmp_path, monkeypatch):
         assert engine.query_sync(query, timeout=TIMEOUT)
         calls = []
 
-        def clauses_launch_fails(out, first, banks, *a, _orig=pm.probe_shards_into, **kw):
-            calls.append(len(banks))
+        def clauses_launch_fails(out, plan, *a, _orig=pk.probe_plan_into, **kw):
+            calls.append([len(banks) for _, banks in plan])
             if a[-1] == "clauses":
-                raise RuntimeError("probe kernel launch failed: cudaError 98")
-            return _orig(out, first, banks, *a, **kw)
+                raise RuntimeError("probe plan failed: cudaError 98")
+            return _orig(out, plan, *a, **kw)
 
-        monkeypatch.setattr(pm, "probe_shards_into", clauses_launch_fails)
+        monkeypatch.setattr(pk, "probe_plan_into", clauses_launch_fails)
         with pytest.raises(RuntimeError, match="cudaError 98"):
             engine.query_sync(query, timeout=TIMEOUT)
-        assert calls == [N]  # one launch covers the mesh's N CPU shards
+        assert calls == [[N]]  # one plan call, one launch over the mesh's N CPU shards
     finally:
         engine.stop(timeout=TIMEOUT)
 

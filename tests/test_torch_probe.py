@@ -372,3 +372,171 @@ def test_cuda_kernel_matches_plain_version():
     assert tk.launch_counts() == {"pack": 3, "reduce_and": 3, "clauses": 3, "floor": 0}
     assert tk.launch_shapes()[("clauses", 256, 3, 16, 16)] == 1
     assert sum(tk.launch_shapes().values()) == 9
+
+
+# -- the plan entry (probe_plan_into, csrc/probe.cu's bs_probe_plan) -----------
+
+
+def c_plan_layout() -> tuple[list[tuple[str, int]], list[tuple[str, int]], int]:
+    """csrc/probe.cu's PlanLaunch as its source states it -> (each field
+    with the offset its comment gives, in order; the offsets its
+    static_assert holds; the size the static_assert holds)."""
+    import re
+
+    with open(tk.SOURCE) as fh:
+        text = fh.read()
+    body = re.search(r"struct PlanLaunch \{(.*?)\};", text, re.S).group(1)
+    fields = [(name, int(off)) for name, off in
+              re.findall(r"(\w+)(?:\[\w+\])?;\s*// (?:offset )?(\d+)", body)]
+    asserted = [(name, int(off)) for name, off in
+                re.findall(r"offsetof\(PlanLaunch, (\w+)\) == (\d+)", text)]
+    size = int(re.search(r"sizeof\(PlanLaunch\) == (\d+)", text).group(1))
+    return fields, asserted, size
+
+
+def test_plan_record_mirror_has_the_c_layout():
+    """``PlanLaunch`` puts every field where the C record's declaration and
+    its ``static_assert`` put it, read from ``csrc/probe.cu`` itself, and
+    is as large: a record off by a field would launch on the wrong
+    pointers."""
+    import ctypes
+
+    fields, asserted, size = c_plan_layout()
+    mirror = [(name, getattr(tk.PlanLaunch, name).offset) for name, _ in tk.PlanLaunch._fields_]
+    assert mirror == fields
+    assert len(asserted) == len(fields) - 1 and set(asserted) <= set(mirror)
+    assert ctypes.sizeof(tk.PlanLaunch) == size == 104
+    assert tk.PlanLaunch.shards.size == 8 * tk.MAX_SHARDS
+
+
+def plan_banks(seed: int, T: int, K: int, n: int = 3, R: int = 40, C: int = 128):
+    """``n`` banks uint32[R, C] with bit 31 set on half the words, T*K probes
+    (shift 31 among them) and columns where every probe of a term is set:
+    some shared by every term (so an AND of 32 terms still matches), the
+    rest the term's own."""
+    rng = np.random.default_rng(seed)
+    banks = rng.integers(0, 2**32, size=(n, R, C), dtype=np.uint64).astype(np.uint32)
+    rows = rng.integers(0, R, size=T * K).astype(np.int32)
+    shifts = rng.integers(0, 32, size=T * K).astype(np.int32)
+    shifts[::3] = 31
+    shared = rng.random((n, C)) < 0.2
+    for t in range(T):
+        cols = shared | (rng.random((n, C)) < 0.3)
+        for j in range(K):
+            p = t * K + j
+            for i in range(n):
+                banks[i, rows[p], cols[i]] |= np.uint32(1) << np.uint32(shifts[p])
+    return banks, rows, shifts
+
+
+PLAN_EPILOGUES = {
+    # epilogue: (its arguments at T terms, the single-bank wrapper)
+    "pack": (lambda T: {}, "probe_and_pack"),
+    "reduce_and": (lambda T: {"and_bits": ((1 << T) - 1) & ~2}, "probe_reduce_and_pack"),
+    "clauses": (lambda T: {"clause_bits": [0b11 & ((1 << T) - 1), 1 << (T - 1), (1 << T) - 1],
+                           "member_bits": [0b011, 0b110, 0b100]}, "probe_clauses_pack"),
+}
+
+
+@pytest.mark.parametrize("T", [1, 3, 16, 32])
+@pytest.mark.parametrize("epilogue", list(PLAN_EPILOGUES))
+def test_plan_on_cpu_banks_fills_each_launch_slice(T, epilogue):
+    """``probe_plan_into`` on CPU banks: launch (first word, banks) lands
+    its banks' words one after another from its first word, equal to each
+    launch made as a plan of its own, to each bank's single-bank wrapper (the plain
+    versions), to the JAX package's fused epilogue on each bank (Pallas in
+    interpret mode) and to the JAX mesh's sharded wrapper over the banks
+    side by side; the words no launch covers keep what they held."""
+    import jax
+
+    from bloomsearch_tpu.parallel import mesh as jm
+
+    K = 3 if T < 32 else 2
+    banks, rows, shifts = plan_banks(T * 7 + len(epilogue), T, K)
+    tb = [torch.from_numpy(b.view(np.int32).copy()) for b in banks]
+    extra_of, single = PLAN_EPILOGUES[epilogue]
+    extra = extra_of(T)
+    out_rows = {"pack": T, "reduce_and": 1}.get(epilogue, 3)
+    plan = [(1, [tb[1], tb[0]]), (10, [tb[2]])]  # words 1-8 and 10-13 of 16
+    out = torch.full((out_rows, 16), 0x5A5A5A5A, dtype=torch.int32)
+    tk.reset_launch_counts()
+    tk.probe_plan_into(out, plan, rows, shifts, T, K, epilogue, **extra)
+    assert sum(tk.launch_counts().values()) == 0
+    assert (out[:, [0, 9, 14, 15]] == 0x5A5A5A5A).all()
+    got = torch.cat([out[:, 1:9], out[:, 10:14]], dim=1)
+    by_launch = torch.full((out_rows, 16), 0x5A5A5A5A, dtype=torch.int32)
+    for first, bs in plan:
+        tk.probe_plan_into(by_launch, [(first, bs)], rows, shifts, T, K, epilogue, **extra)
+    assert torch.equal(out, by_launch)
+    order = [1, 0, 2]
+    args = [extra.get("and_bits")] if epilogue == "reduce_and" else (
+        [extra["clause_bits"], extra["member_bits"]] if epilogue == "clauses" else [])
+    plain = torch.cat([getattr(tk, single)(tb[i], rows, shifts, T, K, *args) for i in order],
+                      dim=1)
+    assert torch.equal(got, plain)
+    name = {"pack": "probe_and_pack", "reduce_and": "probe_reduce_and_pack"}.get(
+        epilogue, "probe_clauses_pack")
+    ref = np.concatenate([jax_epilogue(name, banks[i], rows, shifts, T, K, args) for i in order],
+                         axis=-1)
+    np.testing.assert_array_equal(words(got), ref.reshape(out_rows, -1))
+    jmesh = jm.default_mesh(3)
+    logical = np.concatenate([banks[i] for i in order], axis=1)
+    jbank2d = jm.shard_bank(jmesh, logical)
+    r, s = jnp.asarray(rows), jnp.asarray(shifts)
+    common = dict(use_pallas=True, interpret=True)
+    if epilogue == "pack":
+        want = jm.sharded_probe_packed(jmesh, jbank2d, r, s, T, K, **common)
+    elif epilogue == "reduce_and":
+        mask = jnp.asarray([(args[0] >> t) & 1 for t in range(T)], dtype=bool)
+        want = jm.sharded_query_step(jmesh, jbank2d, r, s, mask, T, K, **common)[0][None, :]
+    else:
+        cb, mb = args
+        clause = jnp.asarray([[(b >> t) & 1 for t in range(T)] for b in cb], jnp.float32)
+        member = jnp.asarray([[(b >> i) & 1 for i in range(len(cb))] for b in mb], jnp.float32)
+        want = jm.sharded_probe_clauses(jmesh, jbank2d, r, s, clause, member, T, K, **common)
+    np.testing.assert_array_equal(words(got), words(jax.device_get(want)))
+    bits = np.unpackbits(words(got).view(np.uint8))
+    assert bits.any() and not bits.all()
+
+
+@pytest.mark.parametrize("bad", [
+    "empty plan", "a launch of no banks", "too many shards", "mixed shapes", "mixed types",
+    "first word below 0", "first word past the output", "too many clauses",
+    "too many members", "wrong output rows", "unknown epilogue", "banks off the CPU and card",
+])
+def test_plan_refuses_what_the_kernel_does_not_take(bad):
+    """Each of these raises ``ValueError`` before anything runs, and the
+    output keeps every word (a pageable output for CUDA banks is refused
+    by the card's test file, where a card can refuse it)."""
+    bank = torch.zeros((16, 128), dtype=torch.int32)
+    rows = np.zeros(4, np.int32)
+    T, K, epilogue, extra, out_rows = 2, 2, "pack", {}, 2
+    plan = [(0, [bank])]
+    if bad == "empty plan":
+        plan = []
+    elif bad == "a launch of no banks":
+        plan = [(0, [bank]), (4, [])]
+    elif bad == "too many shards":
+        plan = [(0, [bank] * (tk.MAX_SHARDS + 1))]
+    elif bad == "mixed shapes":
+        plan = [(0, [bank]), (4, [torch.zeros((8, 128), dtype=torch.int32)])]
+    elif bad == "mixed types":
+        plan = [(0, [bank, torch.zeros((16, 128), dtype=torch.int64)])]
+    elif bad == "first word below 0":
+        plan = [(-1, [bank])]
+    elif bad == "first word past the output":
+        plan = [(0, [bank]), (5, [bank])]
+    elif bad == "too many clauses":
+        epilogue, extra, out_rows = "clauses", {"clause_bits": [1] * 33, "member_bits": [1]}, 1
+    elif bad == "too many members":
+        epilogue, extra, out_rows = "clauses", {"clause_bits": [1], "member_bits": [1] * 33}, 33
+    elif bad == "wrong output rows":
+        out_rows = 3
+    elif bad == "unknown epilogue":
+        epilogue = "or"
+    elif bad == "banks off the CPU and card":
+        plan = [(0, [torch.zeros((16, 128), dtype=torch.int32, device="meta")])]
+    out = torch.full((out_rows, 8), 7, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tk.probe_plan_into(out, plan, rows, rows, T, K, epilogue, **extra)
+    assert (out == 7).all()

@@ -8,19 +8,30 @@ term counts that are not powers of two, K up to 30, shift 31 on words whose
 top bit is set, rows outside [0, R) (they read 0), C from 32 to 32,768, both
 parameter capacities of the kernel (T*K up to ``MAX_PROBES``), probe
 arrays given as numpy arrays and as CPU tensors, and launches captured in a
-CUDA graph, each with its own probes. Every test is marked ``cuda`` and
-skips without a card. On a machine with one, from the repository root:
+CUDA graph, each with its own probes. The plan entry (``probe_plan_into``,
+``csrc/probe.cu``'s ``bs_probe_plan``, the K3 wrappers' and the
+single-device combiner's one call) is held against single launches and
+the plain version at the refscale main-path shapes, on one card and on
+distinct cards, from two threads at once and from a fresh thread; it
+keeps the caller's device, refuses pageable memory, waits for the cards it
+reached after a failure part-way, and its record size is checked at bind.
+Every test is marked ``cuda`` and skips without a card. On a machine with
+one, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_probe_card.py
 
 (``--noconftest``: the suite's conftest imports JAX to pin its platform.)
 """
 
+import ctypes
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from bloomsearch_tpu_torch.kernels import probe as tk
+from bloomsearch_tpu_torch.parallel import mesh as pm
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +220,246 @@ def test_launch_counts_and_captured_launches_keep_their_own_probes(dev):
     assert tk.launch_counts()["floor"] == 3
     for (rows, _), o in zip(sets, outs):
         np.testing.assert_array_equal(words(o), oracle_floor(bank, rows, T, K))
+
+
+# -- the plan entry (bs_probe_plan) ---------------------------------------------
+
+REFSCALE_ROWS = 1_347_900  # 3 keyspaces x 449,300 words (1M items, FPR 0.001)
+SINGLE = {"pack": "probe_and_pack", "reduce_and": "probe_reduce_and_pack",
+          "clauses": "probe_clauses_pack"}
+
+
+@pytest.fixture
+def card(dev):
+    """The first card by its index (the plan tests set and compare
+    devices)."""
+    return torch.device("cuda", 0)
+
+
+def random_banks(devices, rows: int, cols: int, seed: int) -> tuple:
+    """Random bank shards int32[rows, cols], one on each of ``devices``,
+    made on the card."""
+    gens = {d: torch.Generator(device=d).manual_seed(seed) for d in dict.fromkeys(devices)}
+    return tuple(torch.randint(-(2**31), 2**31, (rows, cols), generator=gens[d], device=d,
+                               dtype=torch.int64).to(torch.int32) for d in devices)
+
+
+def probe_args(T: int, rows: int, seed: int, K: int = 10) -> tuple:
+    """Host probe arrays (shift 31 among them) and each epilogue's
+    arguments: every term in the AND but the second, 3 clauses, 2 members."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, rows, T * K).astype(np.int32)
+    s = rng.integers(0, 32, T * K).astype(np.int32)
+    s[::4] = 31
+    extra = {"pack": {}, "reduce_and": {"and_bits": ((1 << T) - 1) & ~2},
+             "clauses": {"clause_bits": [0b11 & ((1 << T) - 1), 1 << (T - 1), (1 << T) - 1],
+                         "member_bits": [0b011, 0b110]}}
+    return r, s, extra
+
+
+def plant(banks, r, s, T: int, K: int, seed: int) -> None:
+    """Set every probed bit of each term in some columns of each bank: a
+    fifth of the columns for every term (so an AND of many terms matches
+    somewhere), a further random third for each term alone."""
+    gen = torch.Generator(device=banks[0].device).manual_seed(seed)
+    for bank in banks:
+        C = bank.shape[1]
+        shared = torch.rand(C, generator=gen, device=gen.device) < 0.2
+        for t in range(T):
+            cols = (shared | (torch.rand(C, generator=gen, device=gen.device) < 0.3)).to(
+                bank.device)
+            for p in range(t * K, (t + 1) * K):
+                bit = int(np.uint32(1 << int(s[p] & 31)).view(np.int32))
+                bank[int(r[p])] |= torch.where(cols, bit, 0).to(torch.int32)
+
+
+def plain_words(bank, r, s, T, K, epilogue, extra) -> torch.Tensor:
+    match = tk.probe_plain(bank, torch.from_numpy(r).to(bank.device),
+                           torch.from_numpy(s).to(bank.device), T, K)
+    if epilogue == "reduce_and":
+        match = tk.reduce_and_plain(match, extra["and_bits"])
+    elif epilogue == "clauses":
+        match = tk.clauses_plain(match, extra["clause_bits"], extra["member_bits"])
+    return tk.pack_bitmap_plain(match).cpu()
+
+
+def single(bank, r, s, T, K, epilogue, extra) -> torch.Tensor:
+    """The single launch (bs_probe_launch) into a new device tensor."""
+    return getattr(tk, SINGLE[epilogue])(bank, r, s, T, K, *extra.values()).cpu()
+
+
+def mesh_kind(kind: str, dev):
+    if kind == "distinct cards":
+        n = min(torch.cuda.device_count(), 4)
+        if n < 2:
+            pytest.skip("needs two or more cards")
+        return pm.Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    return pm.Mesh((dev,) * 4)
+
+
+@pytest.mark.parametrize("kind", ["4 shards on one card", "distinct cards"])
+@pytest.mark.parametrize("epilogue", list(SINGLE))
+def test_plan_matches_single_launches_at_the_main_path_shapes(card, kind, epilogue):
+    """At refscale widths (R = 1,347,900; shards of 128 columns, the one-card
+    bank of 256), T = 1, 4, 16 and 32 with K = 10 (32 x 10 takes the larger
+    parameter capacity): the sharded wrapper (one plan call, a launch a
+    card) equals the single launch on the shards joined on one card and the
+    plain version; the single-device combiner's call (``probe_plan`` with one
+    launch of the unsharded instantiation into a page-locked buffer) and the
+    plan into a device buffer equal the single launch on the one-card bank."""
+    mesh = mesh_kind(kind, card)
+    shards = random_banks(mesh.devices, REFSCALE_ROWS, 128, 3)
+    one_card = random_banks((card,), REFSCALE_ROWS, 256, 4)[0]
+    wrapper = {"pack": pm.sharded_probe_packed, "reduce_and": pm.sharded_query_step,
+               "clauses": pm.sharded_probe_clauses}[epilogue]
+
+    def call(m, bank2d, r, s, T, extra):
+        if epilogue == "reduce_and":
+            return wrapper(m, bank2d, r, s, extra["and_bits"], T, 10)[0][None, :]
+        if epilogue == "clauses":
+            return wrapper(m, bank2d, r, s, extra["clause_bits"], extra["member_bits"], T, 10)
+        return wrapper(m, bank2d, r, s, T, 10)
+
+    for T in (1, 4, 16, 32):
+        r, s, extras = probe_args(T, REFSCALE_ROWS, T)
+        extra = extras[epilogue]
+        plant(shards, r, s, T, 10, T)
+        plant((one_card,), r, s, T, 10, T)
+        flat = torch.cat([sh.to(card) for sh in shards], dim=1)
+        tk.reset_launch_counts()
+        got = call(mesh, shards, r, s, T, extra)
+        assert got.is_pinned() and sum(tk.launch_counts().values()) == len(
+            mesh.distinct_devices())
+        want = single(flat, r, s, T, 10, epilogue, extra)
+        assert torch.equal(got, want), (T, epilogue)
+        assert torch.equal(got, plain_words(flat, r, s, T, 10, epilogue, extra)), (T, epilogue)
+        bits = np.unpackbits(got.numpy().view(np.uint8))
+        assert bits.any() and not bits.all(), (T, epilogue)
+        one = tk.probe_plan([(0, [one_card])], 256 // 32, r, s, T, 10, epilogue, **extra)
+        want_one = single(one_card, r, s, T, 10, epilogue, extra)
+        assert one.is_pinned() and torch.equal(one, want_one), (T, epilogue)
+        assert torch.equal(one, plain_words(one_card, r, s, T, 10, epilogue, extra))
+        on_card = torch.full(tuple(want_one.shape), 7, dtype=torch.int32, device=card)
+        tk.probe_plan_into(on_card, [(0, [one_card])], r, s, T, 10, epilogue, **extra)
+        assert torch.equal(on_card.cpu(), want_one), (T, epilogue)
+
+
+def test_two_threads_call_the_plan_at_once(card):
+    """Two query threads probing at once, each with its own probes and
+    epilogue, 200 calls each: every answer equals the one the main thread
+    got alone (each thread waits on its own event)."""
+    mesh = mesh_kind("4 shards on one card", card)
+    shards = random_banks(mesh.devices, REFSCALE_ROWS, 128, 5)
+    r4, s4, extra4 = probe_args(4, REFSCALE_ROWS, 6)
+    r1, s1, extra1 = probe_args(1, REFSCALE_ROWS, 7)
+    cases = [lambda: pm.sharded_probe_packed(mesh, shards, r4, s4, 4, 10),
+             lambda: pm.sharded_query_step(mesh, shards, r1, s1, 1, 1, 10)[0]]
+    want = [c() for c in cases]
+    barrier = threading.Barrier(2)
+    got: list = [[], []]
+
+    def worker(i):
+        barrier.wait()
+        for _ in range(200):
+            got[i].append(cases[i]())
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for i in range(2):
+        assert len(got[i]) == 200 and all(torch.equal(w, want[i]) for w in got[i]), i
+
+
+def test_the_callers_current_device_is_unchanged(card):
+    """Each plan call sets the device of each card it launches on and gives
+    the caller back the device it had: on one card and, where several are
+    visible, from each card's thread state over a mesh of distinct cards."""
+    n = min(torch.cuda.device_count(), 4)
+    meshes = [mesh_kind("4 shards on one card", card)]
+    if n >= 2:
+        meshes.append(mesh_kind("distinct cards", card))
+    banks = [random_banks(m.devices, 512, 128, 2) for m in meshes]
+    r, s, _ = probe_args(3, 512, 8)
+    try:
+        for current in range(n):
+            torch.cuda.set_device(current)
+            for mesh, shards in zip(meshes, banks):
+                pm.sharded_probe_clauses(mesh, shards, r, s, [0b011, 0b100], [0b11], 3, 10)
+                assert torch.cuda.current_device() == current
+                tk.probe_plan([(0, [shards[0]])], 4, r, s, 3, 10, "reduce_and", and_bits=0b111)
+                assert torch.cuda.current_device() == current
+    finally:
+        torch.cuda.set_device(card)
+
+
+def test_pageable_output_is_refused_by_the_plan(card):
+    """A plan into host memory that is not page-locked raises before
+    anything is launched: its words stay as they were and nothing counts."""
+    bank = torch.zeros((64, 128), dtype=torch.int32, device=card)
+    r = np.zeros(4, np.int32)
+    out = torch.full((2, 4), 7, dtype=torch.int32)
+    tk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tk.probe_plan_into(out, [(0, [bank])], r, r, 2, 2, "pack")
+    torch.cuda.synchronize()
+    assert (out == 7).all() and sum(tk.launch_counts().values()) == 0
+
+
+def test_a_failure_part_way_waits_for_the_cards_that_launched(card):
+    """A plan whose second launch names a card index the record takes but
+    no machine has: the call raises that error only once the first launch,
+    queued behind some 50 ms of spinning on its stream, has finished, so
+    its words are all there when the call returns, and the caller's
+    current device is kept."""
+    shards = random_banks((card,) * 4, REFSCALE_ROWS, 128, 4)
+    r, s, _ = probe_args(16, REFSCALE_ROWS, 9)
+    want = pm.sharded_probe_packed(pm.Mesh((card,) * 4), shards, r, s, 16, 10)
+    rows, shifts = tk._check(shards[0], r, s, 16, 10)
+    out = torch.full(tuple(want.shape), 0x5A5A5A5A, dtype=torch.int32).pin_memory()
+    plan = [(0, list(shards)), (0, [shards[0]])]
+    records = tk.plan_records(plan, {card: torch.cuda.current_stream(card).cuda_stream})
+    records[1].device = 63  # below csrc/probe.cu's MAX_DEVICES (64)
+    records[1].stream = None
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # the first launch waits behind it
+    with pytest.raises(RuntimeError, match="cudaError 101"):  # cudaErrorInvalidDevice
+        tk.plan_call(rows, shifts, 16, 10, "pack", records, out)
+    assert torch.equal(out, want)
+    assert torch.cuda.current_device() == card.index
+
+
+def test_a_record_size_mismatch_is_refused_at_bind(card, monkeypatch):
+    """A ``PlanLaunch`` mirror of another size than the library's record is
+    refused when the library is bound, before any launch."""
+    tk.library()
+
+    class Padded(ctypes.Structure):
+        _fields_ = tk.PlanLaunch._fields_ + [("extra", ctypes.c_int64)]
+
+    monkeypatch.setattr(tk, "PlanLaunch", Padded)
+    monkeypatch.setattr(tk, "_lib", None)
+    with pytest.raises(RuntimeError, match="plan record is 104 bytes"):
+        tk.library()
+
+
+def test_a_fresh_thread_makes_the_single_device_call(card):
+    """The engine's worker threads make the single-device combiner's call
+    (``probe_plan`` over the one bank): a thread that has made no CUDA call has no current
+    context, and the page-locked buffer then has no device address until
+    the plan makes the card's context current."""
+    bank = random_banks((card,), REFSCALE_ROWS, 256, 10)[0]
+    r, s, _ = probe_args(2, REFSCALE_ROWS, 11)
+
+    def run():
+        return tk.probe_plan([(0, [bank])], 256 // 32, r, s, 2, 10, "clauses",
+                             clause_bits=[0b01, 0b10], member_bits=[0b11])
+
+    want = run()
+    got: list = []
+    worker = threading.Thread(target=lambda: got.append(run()))
+    worker.start()
+    worker.join()
+    assert len(got) == 1 and torch.equal(got[0], want)
