@@ -501,16 +501,20 @@ extern "C" int bs_scan_launch(const int32_t* rows, int64_t rows_total, int64_t c
   return launch_needles(n_real, rows, chunks, nd, rg, out + first_word, out_stride, stream);
 }
 
-// One segment-mode launch of bs_scan_plan: n_ranges ranges of stream
-// tensors on card `device` (range r reads rows [start[r], + chunks[r]) of
-// base[r]; each base holds rows_total rows, each count is a positive
-// multiple of 32), launched on `stream`, a stream of that card, its words
-// stored from word first_word of each output row. 128 bytes without
-// padding on a 64-bit host; kernels/scan.py::PlanLaunch mirrors it and
-// compares its size with bs_scan_plan_record_size() when it binds.
+// One launch of bs_scan_plan on card `device`, launched on `stream`, a
+// stream of that card, its words stored from word first_word of each output
+// row. In segment mode (n_ranges 1..MAX_SEGS) range r reads rows [start[r],
+// + chunks[r]) of base[r], each base holding rows_total rows and each count a
+// positive multiple of 32. With n_ranges 0 it is a dense-mode launch over
+// all rows_total rows of base[0] (a positive multiple of 32; start and
+// chunks unread): the same words as one range over the whole base, which
+// segment mode scans 0.3% slower at 8 needles on an H100 (chip_smoke.py's
+// dense_mode_turns). 128 bytes without padding on a 64-bit
+// host; kernels/scan.py::PlanLaunch mirrors it and compares its size with
+// bs_scan_plan_record_size() when it binds.
 struct PlanLaunch {
   int32_t device;                  // offset 0
-  int32_t n_ranges;                // 4: 1..MAX_SEGS
+  int32_t n_ranges;                // 4: 0 (dense mode over base[0]) or 1..MAX_SEGS
   void* stream;                    // 8: a cudaStream_t
   const int32_t* base[MAX_SEGS];   // 16
   int64_t start[MAX_SEGS];         // 48
@@ -560,10 +564,15 @@ extern "C" int bs_scan_plan(const uint8_t* needle_bytes, const int32_t* lens, in
   for (int d = 0; d < MAX_DEVICES; ++d) last[d] = -1;
   for (int i = 0; i < n_launches; ++i) {
     const PlanLaunch& p = plan[i];
-    if (p.device < 0 || p.device >= MAX_DEVICES || p.n_ranges < 1 || p.n_ranges > MAX_SEGS ||
+    if (p.device < 0 || p.device >= MAX_DEVICES || p.n_ranges < 0 || p.n_ranges > MAX_SEGS ||
         p.first_word < 0 || (last[p.device] >= 0 && streams[p.device] != p.stream))
       return (int)cudaErrorInvalidValue;
     int64_t chunks = 0;
+    if (p.n_ranges == 0) {
+      if (p.base[0] == nullptr || p.rows_total <= 0 || p.rows_total % TILE_CHUNKS != 0)
+        return (int)cudaErrorInvalidValue;
+      chunks = p.rows_total;
+    }
     for (int r = 0; r < p.n_ranges; ++r) {
       if (p.base[r] == nullptr || p.chunks[r] <= 0 || p.chunks[r] % TILE_CHUNKS != 0 ||
           p.start[r] < 0 || p.start[r] + p.chunks[r] > p.rows_total)
@@ -601,16 +610,16 @@ extern "C" int bs_scan_plan(const uint8_t* needle_bytes, const int32_t* lens, in
       card_out[d] = addr;
       launched[n_cards++] = d;  // from here on waited for below, whatever follows
     }
-    Ranges rg = {};
+    Ranges rg = {};  // n = 0: dense mode
     rg.n = p.n_ranges;
-    int64_t off = 0;
+    int64_t off = p.n_ranges == 0 ? p.rows_total : 0;
     for (int r = 0; r < p.n_ranges; ++r) {
       rg.base[r] = p.base[r];
       rg.starts[r] = p.start[r];
       rg.offsets[r] = off;
       off += p.chunks[r];
     }
-    rg.offsets[p.n_ranges] = off;
+    if (p.n_ranges > 0) rg.offsets[p.n_ranges] = off;
     rc = launch_needles(n_real, p.base[0], off, nd, rg, card_out[d] + p.first_word, out_stride,
                         p.stream);
     if (rc != 0) break;
@@ -638,5 +647,8 @@ extern "C" int bs_scan_plan(const uint8_t* needle_bytes, const int32_t* lens, in
     const cudaError_t err = cudaSetDevice(caller);
     if (rc == 0) rc = (int)err;
   }
+  // The error is returned here; it must not stay the thread's last error,
+  // which the next launch's check (this file's or torch's) would report.
+  if (rc != 0) cudaGetLastError();
   return rc;
 }

@@ -28,10 +28,11 @@ own base pointer), with its words stored at a given first word of each row
 of an output that may be wider and may be page-locked host memory, which
 the kernel then writes through its device address.
 ``byte_scan_plan_into`` is what the sharded scans (K3, ``parallel/mesh.py``)
-and the row cache's sparse scan call: every launch of one call (a plan of
-such launches, on one card or several) into one page-locked joined bitmap,
-issued and waited for in one foreign call (``csrc/scan.cu``'s
-``bs_scan_plan``), which ctypes makes with the interpreter lock released.
+and the row cache's scans on one card, sparse and dense, call: every launch
+of one call (a plan of such launches, on one card or several) into one
+page-locked joined bitmap, issued and waited for in one foreign call
+(``csrc/scan.cu``'s ``bs_scan_plan``), which ctypes makes with the
+interpreter lock released.
 """
 
 from __future__ import annotations
@@ -56,19 +57,6 @@ MAX_SCAN_WINDOW = 32  # longest needle the kernel takes (rowcache.MAX_NEEDLE)
 MAX_SCAN_NEEDLES = 8  # needles per launch (callers chunk above this)
 MAX_SEGMENTS = 4
 TILE_CHUNKS = 32  # chunks of one kernel tile and one output word
-# Word-loop buckets of the TPU kernel: a needle of length L spans at most
-# ceil((L + 3) / 4) packed words. The CUDA kernel needs no bucket; callers
-# still pass one, so launches keep the JAX package's shape keys.
-SCAN_WORD_BUCKETS = (2, 4, 6, 9)
-
-
-def scan_word_bucket(max_len: int) -> int:
-    need = (max_len + 3 + 3) // 4
-    for b in SCAN_WORD_BUCKETS:
-        if need <= b:
-            return b
-    return SCAN_WORD_BUCKETS[-1]
-
 
 # One launch of a plan: (first output word, [(stream tensor, first row,
 # rows), ...] of up to MAX_SEGMENTS ranges on one device).
@@ -78,7 +66,8 @@ PlanLaunchArgs = tuple[int, Sequence[tuple[torch.Tensor, int, int]]]
 class PlanLaunch(ctypes.Structure):
     """One launch record of ``bs_scan_plan``, the mirror of ``csrc/scan.cu``'s
     ``PlanLaunch`` (128 bytes without padding: device 0, n_ranges 4, stream
-    8, base 16, start 48, chunks 80, rows_total 112, first_word 120).
+    8, base 16, start 48, chunks 80, rows_total 112, first_word 120;
+    n_ranges 0 is dense mode over ``base[0]``'s ``rows_total`` rows).
     ``library()`` refuses a build whose record size differs."""
 
     _fields_ = [
@@ -98,10 +87,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 _count_lock = threading.Lock()
 _launches = {"stream": 0, "segments": 0}
-# (mode, logical chunks G, n_real, n_segs, range chunk counts, word bucket)
-# -> launches; the range counts are () in stream mode, the shards' row
-# counts in a sharded stream launch (byte_scan_shards_into).
-_shapes: dict[tuple[str, int, int, int, tuple[int, ...], int], int] = {}
+# (mode, logical chunks G, n_real, n_segs, range chunk counts) -> launches;
+# the range counts are () for a dense-mode launch (byte_scan_stream, or a
+# plan's launch of one range over a whole base), else the ranges' rows.
+_shapes: dict[tuple[str, int, int, int, tuple[int, ...]], int] = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -110,9 +99,9 @@ def launch_counts() -> dict[str, int]:
         return dict(_launches)
 
 
-def launch_shapes() -> dict[tuple[str, int, int, int, tuple[int, ...], int], int]:
+def launch_shapes() -> dict[tuple[str, int, int, int, tuple[int, ...]], int]:
     """Kernel launches per (mode, logical chunks G, n_real, n_segs, range
-    chunk counts as launched, word bucket) since the last reset."""
+    chunk counts as launched) since the last reset."""
     with _count_lock:
         return dict(_shapes)
 
@@ -124,11 +113,10 @@ def reset_launch_counts() -> None:
         _shapes.clear()
 
 
-def _count(mode: str, G: int, n_real: int, range_chunks: Sequence[int],
-           max_words: int) -> None:
+def _count(mode: str, G: int, n_real: int, range_chunks: Sequence[int]) -> None:
     with _count_lock:
         _launches[mode] += 1
-        key = (mode, G, n_real, len(range_chunks), tuple(range_chunks), max_words)
+        key = (mode, G, n_real, len(range_chunks), tuple(range_chunks))
         _shapes[key] = _shapes.get(key, 0) + 1
 
 
@@ -171,7 +159,7 @@ def library() -> ctypes.CDLL:
 
 
 def _check(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
-           n_real: int, max_words: int) -> tuple[np.ndarray, np.ndarray]:
+           n_real: int) -> tuple[np.ndarray, np.ndarray]:
     """-> (uint8[n_real, 32] needle bytes, int32[n_real] lengths)."""
     if (rows32.dim() != 2 or rows32.dtype != torch.int32
             or rows32.shape[1] != CHUNK_BYTES // 4 or not rows32.is_contiguous()):
@@ -190,8 +178,8 @@ def _check(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
         raise ValueError("needle values must be bytes (0..255)")
     lens = lens[:n_real].astype(np.int32)
     short = lens.tolist()
-    if min(short) < 0 or max(short) > min(MAX_SCAN_WINDOW, 4 * max_words - 3):
-        raise ValueError(f"needle lengths {short} exceed the word bucket {max_words}")
+    if min(short) < 0 or max(short) > MAX_SCAN_WINDOW:
+        raise ValueError(f"needle lengths {short}: the kernel takes 0..{MAX_SCAN_WINDOW}")
     return real.astype(np.uint8), lens
 
 
@@ -283,40 +271,40 @@ def _launch(rows32: torch.Tensor, needle_bytes: np.ndarray, lens: np.ndarray,
 
 
 def byte_scan_stream(rows32: torch.Tensor, needles: np.ndarray, lens: np.ndarray,
-                     *, n_real: int, max_words: int) -> torch.Tensor:
+                     *, n_real: int) -> torch.Tensor:
     """Dense mode (``scan_all``): -> int32[n_real, rows/32] over every row."""
-    needle_bytes, real_lens = _check(rows32, needles, lens, n_real, max_words)
+    needle_bytes, real_lens = _check(rows32, needles, lens, n_real)
     G = rows32.shape[0]
     if G == 0 or G % 32:
         raise ValueError(f"the stream's rows must be a positive multiple of 32, got {G}")
     if rows32.device.type == "cpu":
         return byte_scan_plain(rows32, needle_bytes, real_lens, n_real)
     out = _launch(rows32, needle_bytes, real_lens, G, (), ())
-    _count("stream", G, n_real, (), max_words)
+    _count("stream", G, n_real, ())
     return out
 
 
 def byte_scan_segments(rows32: torch.Tensor, seg_starts: Sequence[int],
                        needles: np.ndarray, lens: np.ndarray, *, n_real: int,
-                       max_words: int, seg_chunks: Union[int, Sequence[int]]) -> torch.Tensor:
+                       seg_chunks: Union[int, Sequence[int]]) -> torch.Tensor:
     """Segment mode (``scan_segments``): -> int32[n_real, sum(rounded)/32]
     over up to 4 ranges at ``seg_starts`` of ``seg_chunks`` chunks (one
     count for all, the JAX package's form, or one each), each rounded up
     to a multiple of 32 chunks and clamped into the stream
     (``segment_layout``), in order. The chunks added by rounding are read
     and scanned; callers ignore their bits."""
-    needle_bytes, real_lens = _check(rows32, needles, lens, n_real, max_words)
+    needle_bytes, real_lens = _check(rows32, needles, lens, n_real)
     starts, counts = segment_layout(seg_starts, seg_chunks, rows32.shape[0])
     if rows32.device.type == "cpu":
         return byte_scan_plain(rows32, needle_bytes, real_lens, n_real, starts, counts)
     out = _launch(rows32, needle_bytes, real_lens, sum(counts), starts, counts)
-    _count("segments", sum(counts), n_real, counts, max_words)
+    _count("segments", sum(counts), n_real, counts)
     return out
 
 
 def byte_scan_ranges_into(out: torch.Tensor, first_word: int, bases: Sequence[torch.Tensor],
                           starts: Sequence[int], counts: Sequence[int], needles: np.ndarray,
-                          lens: np.ndarray, *, n_real: int, max_words: int,
+                          lens: np.ndarray, *, n_real: int,
                           count_as: str = "segments") -> None:
     """Segment mode over up to ``MAX_SEGMENTS`` ranges in one launch:
     range r reads rows ``[starts[r], starts[r] + counts[r])`` of
@@ -336,7 +324,7 @@ def byte_scan_ranges_into(out: torch.Tensor, first_word: int, bases: Sequence[to
         raise ValueError(f"{n} bases, {len(starts)} starts and {len(counts)} counts: one "
                          f"launch takes 1..{MAX_SEGMENTS} ranges")
     first = bases[0]
-    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
+    needle_bytes, real_lens = _check(first, needles, lens, n_real)
     for b in bases:
         if b.shape != first.shape or b.dtype != first.dtype or b.device != first.device \
                 or not b.is_contiguous():
@@ -364,7 +352,7 @@ def byte_scan_ranges_into(out: torch.Tensor, first_word: int, bases: Sequence[to
     if out.device.type != "cpu" and out.device != first.device:
         raise ValueError(f"out is on {out.device}, the bases on {first.device}")
     _launch(first, needle_bytes, real_lens, chunks, starts, counts, out, first_word, bases)
-    _count(count_as, chunks, n_real, counts, max_words)
+    _count(count_as, chunks, n_real, counts)
 
 
 def _check_plan(out: torch.Tensor, plan: Sequence[PlanLaunchArgs],
@@ -410,15 +398,26 @@ def _check_plan(out: torch.Tensor, plan: Sequence[PlanLaunchArgs],
     return launches
 
 
+def launched_ranges(ranges: Sequence[tuple[torch.Tensor, int, int]]) -> tuple[int, ...]:
+    """A plan launch's range counts as ``bs_scan_plan`` launches them: ()
+    for one range over the whole of its base, which is a dense-mode record
+    (the same words, and dense mode is the faster loop), else each range's
+    rows."""
+    if len(ranges) == 1 and ranges[0][1] == 0 and ranges[0][2] == ranges[0][0].shape[0]:
+        return ()
+    return tuple(c for _, _, c in ranges)
+
+
 def plan_records(plan: Sequence[PlanLaunchArgs], streams: Mapping) -> ctypes.Array:
     """``plan`` as ``bs_scan_plan``'s records, each launch on the stream
     handle ``streams`` gives for its device (-1 stands for the CPU's
-    device index, which no card has)."""
+    device index, which no card has); a launch of one range over a whole
+    base is a dense-mode record (``launched_ranges``)."""
     records = (PlanLaunch * len(plan))()
     for rec, (first_word, ranges) in zip(records, plan):
         device = ranges[0][0].device
         rec.device = -1 if device.index is None else device.index
-        rec.n_ranges = len(ranges)
+        rec.n_ranges = len(launched_ranges(ranges))
         rec.stream = streams[device]
         for r, (base, s, c) in enumerate(ranges):
             rec.base[r] = base.data_ptr()
@@ -442,7 +441,7 @@ def plan_call(needle_bytes: np.ndarray, lens: np.ndarray, records: ctypes.Array,
 
 
 def byte_scan_plan_into(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], needles: np.ndarray,
-                        lens: np.ndarray, *, n_real: int, max_words: int,
+                        lens: np.ndarray, *, n_real: int,
                         count_as: str = "segments") -> None:
     """Every launch of ``plan`` into ``out`` (``int32[n_real, words]``):
     launch ``(first_word, ranges)`` reads ranges ``(base, first row, rows)``
@@ -455,14 +454,15 @@ def byte_scan_plan_into(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], needl
     once, each launch issued on its card's current stream, every card's
     launches issued before any is waited for, and the call returns once
     every card is done (after a failure too, before it raises), the
-    caller's current device unchanged. Each launch counts once as a
-    ``count_as`` launch (its shape key: the launch's chunks and range
-    counts). On CPU bases: the plain version, range by range, into the same
-    slices (counted nowhere)."""
+    caller's current device unchanged. One range over a whole base
+    launches in dense mode. Each launch counts once as a ``count_as``
+    launch (its shape key: the launch's chunks and range counts as
+    launched, ``launched_ranges``). On CPU bases: the plain version, range
+    by range, into the same slices (counted nowhere)."""
     if not plan:
         raise ValueError("an empty plan")
     first = plan[0][1][0][0]
-    needle_bytes, real_lens = _check(first, needles, lens, n_real, max_words)
+    needle_bytes, real_lens = _check(first, needles, lens, n_real)
     launches = _check_plan(out, plan, n_real)
     if first.device.type == "cpu":
         for first_word, ranges in plan:
@@ -481,4 +481,4 @@ def byte_scan_plan_into(out: torch.Tensor, plan: Sequence[PlanLaunchArgs], needl
                for device in dict.fromkeys(device for device, _ in launches)}
     plan_call(needle_bytes, real_lens, plan_records(plan, streams), out)
     for (_, ranges), (_, n) in zip(plan, launches):
-        _count(count_as, n, n_real, [c for _, _, c in ranges], max_words)
+        _count(count_as, n, n_real, launched_ranges(ranges))

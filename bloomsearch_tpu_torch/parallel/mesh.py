@@ -27,8 +27,8 @@ page-locked host buffer taken per call from torch's pinned allocator, at
 the word offset of its first shard or piece. Every wrapper hands all its
 launches to one foreign call that issues every card's launches and waits
 for them (``kernels/probe.py::probe_plan_into``,
-``kernels/scan.py::byte_scan_plan_into``). The sparse scan also takes
-``mesh=None`` with one plain tensor: the single-device call, one launch
+``kernels/scan.py::byte_scan_plan_into``). Both scans also take
+``mesh=None`` with one plain tensor: the single-device calls, one launch
 through the same entry. That bitmap is
 bit-for-bit the unsharded kernel's output because every shard is a
 contiguous range whose width is a multiple of 32
@@ -424,37 +424,40 @@ def sharded_probe_clauses(mesh: Mesh, bank2d: Sharded, row_idx, shift,
                          clause_bits=clause_bits, member_bits=member_bits)
 
 
-def sharded_scan_all_rows(mesh: Mesh, rows32: Sharded, needles: np.ndarray,
-                          lens: np.ndarray, *, n_real: int,
-                          max_words: int) -> torch.Tensor:
+def sharded_scan_all_rows(mesh: Optional[Mesh], rows32: Sharded, needles: np.ndarray,
+                          lens: np.ndarray, *, n_real: int) -> torch.Tensor:
     """Scan every resident chunk on its own shard -> packed
     int32[n_real, G/32] over logical chunks, on the host.
 
     The dense stream mode only (480 payload bytes a chunk, what the row
     cache scans): chunk overlap bytes are duplicated into each chunk at
     pack time, so shard boundaries need no halo exchange. A card's shards
-    are one launch of up to 4 whole-shard ranges (``MAX_SEGMENTS``),
-    counted as dense (``stream``) launches; needles travel as kernel
-    arguments from the host. All the launches are one
-    ``byte_scan_plan_into`` call."""
+    are one launch of up to 4 whole-shard ranges (``MAX_SEGMENTS``; a
+    card's one shard is a dense-mode launch), counted as dense
+    (``stream``) launches; needles travel as kernel arguments from the
+    host. All the launches are one ``byte_scan_plan_into`` call. With
+    ``mesh`` None, ``rows32`` is one stream tensor (the single-device row
+    cache's dense scan): one dense-mode launch over the whole stream into
+    page-locked memory, counted as a ``stream`` launch of the kernel; only
+    a mesh's calls count in ``launch_counts()``."""
     shards = _shards(rows32)
     rows = shards[0].shape[0]
     plan = [(card.offsets[card.shards.index(run[0])], [(shards[i], 0, rows) for i in run])
             for card in card_layout(rows32, 0, MAX_SEGMENTS) for run in card.launches]
     out = _scan_plan(shards, logical_size(rows32, 0) // TILE_CHUNKS, plan, needles, lens,
-                     n_real, max_words, "stream")
-    _count("sharded_scan_all_rows", shards)
+                     n_real, "stream")
+    if mesh is not None:
+        _count("sharded_scan_all_rows", shards)
     return out
 
 
 def _scan_plan(shards: tuple, words: int, plan: list, needles: np.ndarray, lens: np.ndarray,
-               n_real: int, max_words: int, count_as: str) -> torch.Tensor:
+               n_real: int, count_as: str) -> torch.Tensor:
     """``plan``'s launches into a new int32[n_real, words] bitmap,
     page-locked on cards."""
     out = torch.empty((n_real, words), dtype=torch.int32,
                       pin_memory=shards[0].device.type == "cuda")
-    byte_scan_plan_into(out, plan, needles, lens, n_real=n_real, max_words=max_words,
-                        count_as=count_as)
+    byte_scan_plan_into(out, plan, needles, lens, n_real=n_real, count_as=count_as)
     return out
 
 
@@ -535,7 +538,6 @@ def piece_launches(pieces: Sequence[tuple[int, int, int]], devices: Sequence,
 
 def sharded_scan_segments(mesh: Optional[Mesh], rows32: Sharded, seg_starts: Sequence[int],
                           needles: np.ndarray, lens: np.ndarray, *, n_real: int,
-                          max_words: int,
                           seg_chunks: Sequence[int]) -> tuple[torch.Tensor, list[int]]:
     """Scan just the requested chunk ranges (``seg_starts``, ``seg_chunks``
     chunks each) of a sharded stream, each read in place on the card that
@@ -553,7 +555,7 @@ def sharded_scan_segments(mesh: Optional[Mesh], rows32: Sharded, seg_starts: Seq
     in ``launch_counts()``."""
     shards = _shards(rows32)
     plan, words, range_base = segment_plan(shards, seg_starts, seg_chunks)
-    out = _scan_plan(shards, words, plan, needles, lens, n_real, max_words, "segments")
+    out = _scan_plan(shards, words, plan, needles, lens, n_real, "segments")
     if mesh is not None:
         _count("sharded_scan_segments", shards)
     return out, range_base

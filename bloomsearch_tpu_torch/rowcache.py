@@ -50,10 +50,9 @@ rows may straddle shards). A mesh chooses sparse or dense by the
 single-device rule: a dense scan covers every shard
 (``sharded_scan_all_rows``), a sparse one reads just the requested ranges
 on the cards that hold them (``sharded_scan_segments``), where the
-reference scans every shard in full. On one device a sparse scan is the
-same call on the one stream tensor (one launch, into page-locked host
-memory, issued and waited for in one foreign call); a dense one is
-``byte_scan_stream``.
+reference scans every shard in full. On one device both are the same
+calls on the one stream tensor (one launch, into page-locked host memory,
+issued and waited for in one foreign call).
 
 Snapshot consistency without immutable arrays (the rule of bloom/bank.py):
 a scan captures ``matrix`` (the whole tuple of shards on a mesh) and the
@@ -81,12 +80,7 @@ import torch
 
 from . import native as _native
 from .kernels import scan as _scan_kernel
-from .kernels.scan import (
-    MAX_SCAN_NEEDLES,
-    SCAN_WORD_BUCKETS,
-    byte_scan_stream,
-    scan_word_bucket,
-)
+from .kernels.scan import MAX_SCAN_NEEDLES
 from .parallel.mesh import (
     logical_size,
     mesh_for,
@@ -887,14 +881,14 @@ class DeviceRowCache:
             lens = np.zeros(1, dtype=np.int32)
             for dev in self.mesh.distinct_devices():
                 _scan_kernel.byte_scan_stream(
-                    sharded_zeros_rows(None, 32, device=dev), needle, lens,
-                    n_real=1, max_words=SCAN_WORD_BUCKETS[0],
+                    sharded_zeros_rows(None, 32, device=dev), needle, lens, n_real=1,
                 ).cpu()
 
     def precompile_scan_programs(self, blocks: list, yield_to=None) -> int:
-        """Launch the scan kernel once in dense mode and once in segment
-        mode over the current matrix, and fetch both results -> launches.
-        On a mesh: one dense sharded call (every shard) and one sparse one.
+        """Launch the scan kernel once over the whole matrix and once over
+        a segment, through the calls a query makes, and fetch both results
+        -> launches. On a mesh: one dense sharded call (every shard) and one
+        sparse one.
 
         A one-time check that the kernel launches on this stream (there is
         no per-shape compile; ``load_scan_kernel`` loads the library).
@@ -914,22 +908,16 @@ class DeviceRowCache:
         seg_chunks = max(_round_up_pow2(max(max_chunks, 1)), 512)
         padded = np.zeros((1, MAX_NEEDLE), dtype=np.int32)
         lens = np.zeros(1, dtype=np.int32)
-        max_words = SCAN_WORD_BUCKETS[0]
         if yield_to is not None:
             yield_to()
-        if self.mesh is not None:
-            sharded_scan_all_rows(
-                self.mesh, matrix, padded, lens, n_real=1, max_words=max_words
-            )
-        else:
-            byte_scan_stream(matrix, padded, lens, n_real=1, max_words=max_words).cpu()
+        sharded_scan_all_rows(self.mesh, matrix, padded, lens, n_real=1)
         launched = 1
         if seg_chunks * 4 <= phys_cap:
             if yield_to is not None:
                 yield_to()
             sharded_scan_segments(
                 self.mesh, matrix, [0], padded, lens, n_real=1,
-                max_words=max_words, seg_chunks=[max(max_chunks, 1)],
+                seg_chunks=[max(max_chunks, 1)],
             )
             launched += 1
         return launched
@@ -1100,16 +1088,14 @@ class DeviceRowCache:
         fresh: dict[bytes, np.ndarray] = {}
         if missing:
             # Sort by length before chunking (the JAX package's launch
-            # grouping, kept for identical launches and word buckets).
+            # grouping, kept so each launch scans the reference's group).
+            # Every launch takes just its real needles: the kernel's time
+            # grows with the needle count, and it has no per-shape compile
+            # to save by padding to the reference's pow2 buckets.
             missing.sort(key=len)
             for base in range(0, len(missing), MAX_SCAN_NEEDLES):
                 part = missing[base : base + MAX_SCAN_NEEDLES]
-                max_words = scan_word_bucket(max(len(n) for n in part))
-                # SPARSE launches take just the real needles, DENSE ones
-                # pow2 buckets (the JAX package's launch shapes), whose
-                # padding rows carry length 0: they match every chunk and
-                # are sliced off below.
-                n_real = len(part) if sparse else _round_up_pow2(len(part))
+                n_real = len(part)
                 padded = np.zeros((n_real, MAX_NEEDLE), dtype=np.int32)
                 lens = np.zeros(n_real, dtype=np.int32)
                 for row, needle in enumerate(part):
@@ -1123,20 +1109,16 @@ class DeviceRowCache:
                     # range_base[(ps, pn)] of the page-locked result.
                     out, bases = sharded_scan_segments(
                         self.mesh, matrix, [ps for ps, _ in ranges], padded, lens,
-                        n_real=n_real, max_words=max_words,
-                        seg_chunks=[pn for _, pn in ranges],
+                        n_real=n_real, seg_chunks=[pn for _, pn in ranges],
                     )
                     range_base = dict(zip(ranges, bases))
-                elif self.mesh is not None:
-                    out = sharded_scan_all_rows(
-                        self.mesh, matrix, padded, lens, n_real=n_real,
-                        max_words=max_words,
-                    )
                 else:
-                    out = byte_scan_stream(
-                        matrix, padded, lens, n_real=n_real, max_words=max_words
+                    out = sharded_scan_all_rows(
+                        self.mesh, matrix, padded, lens, n_real=n_real
                     )
-                packed = out.cpu().numpy().view(np.uint32)
+                # Both calls return their words on the host (page-locked
+                # on cards): no copy.
+                packed = out.numpy().view(np.uint32)
                 for row, needle in enumerate(part):
                     fresh[needle] = packed[row]
             # Only full-residency bitmaps are cacheable.
@@ -1144,11 +1126,11 @@ class DeviceRowCache:
                 with self._lock:
                     if bucket.version == version:
                         for needle, row in fresh.items():
-                            # own copy: a view would pin the whole launch
-                            # result array in memory
-                            bucket.needle_cache[needle] = (
-                                version, np.ascontiguousarray(row),
-                            )
+                            # A copy of the row: the row is a view whose
+                            # base is the launch's whole output (up to 8
+                            # rows, page-locked on cards), which the byte
+                            # budget below does not count.
+                            bucket.needle_cache[needle] = (version, row.copy())
                         per_entry = max(
                             (ent[1].nbytes for ent in bucket.needle_cache.values()),
                             default=0,

@@ -68,8 +68,7 @@ needles[0, :4] = list(b"abcd")
 lens = np.array([4, 0, 0, 0, 0, 0, 0, 0], np.int32)
 launches = {
     "probe": (pk, lambda: pk.probe_and_pack(bank, rows, rows, 2, 4)),
-    "scan": (ks, lambda: ks.byte_scan_stream(rows32, needles, lens, n_real=1,
-                                             max_words=ks.scan_word_bucket(4))),
+    "scan": (ks, lambda: ks.byte_scan_stream(rows32, needles, lens, n_real=1)),
 }
 for name, (module, launch) in launches.items():
     mtime = os.path.getmtime(module.LIBRARY)

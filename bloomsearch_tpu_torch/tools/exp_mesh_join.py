@@ -229,10 +229,9 @@ def shards_into(out: torch.Tensor, first_word: int, shards, needles, lens, **kw)
                              [s.shape[0] for s in shards], needles, lens, count_as="stream", **kw)
 
 
-def scan_case(label: str, mesh, shards: tuple, needles, lens, n_real: int,
-              max_words: int = 9) -> Case:
+def scan_case(label: str, mesh, shards: tuple, needles, lens, n_real: int) -> Case:
     """A sharded dense scan."""
-    kw = dict(n_real=n_real, max_words=max_words)
+    kw = dict(n_real=n_real)
     return Case(label, shards, 0, n_real, ks.MAX_SEGMENTS,
                 lambda s: ks.byte_scan_stream(s, needles, lens, **kw),
                 lambda o, w, s: shards_into(o, w, s, needles, lens, **kw),
@@ -509,10 +508,9 @@ class SparseCase:
     needles: np.ndarray
     lens: np.ndarray
     n_real: int
-    max_words: int = 9
 
     def _kw(self) -> dict:
-        return dict(n_real=self.n_real, max_words=self.max_words)
+        return dict(n_real=self.n_real)
 
     def sharded(self) -> tuple:
         """The package's call -> (its words on the host, range_base)."""
@@ -604,8 +602,7 @@ def plan_split_us(case: SparseCase, reps: int = 200) -> dict:
     until it returns."""
     devices = list(dict.fromkeys(s.device for s in case.shards))
     plan, words, _ = pm.segment_plan(case.shards, case.starts, case.counts)
-    needle_bytes, real_lens = ks._check(case.shards[0], case.needles, case.lens, case.n_real,
-                                        case.max_words)
+    needle_bytes, real_lens = ks._check(case.shards[0], case.needles, case.lens, case.n_real)
     out = torch.empty((case.n_real, words), dtype=torch.int32, pin_memory=True)
     streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devices}
     stamps = (ctypes.c_int64 * 2)()
@@ -754,8 +751,7 @@ def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
     def launch():
         ks.byte_scan_ranges_into(pinned, first, [b for b, _, _ in ranges],
                                  [r for _, r, _ in ranges], [n for _, _, n in ranges],
-                                 case.needles, case.lens, n_real=case.n_real,
-                                 max_words=case.max_words)
+                                 case.needles, case.lens, n_real=case.n_real)
 
     steps = {
         "segment_pieces": lambda: pm.segment_pieces(case.starts, case.counts, rows,
@@ -766,7 +762,7 @@ def sparse_host_us(case: SparseCase, reps: int = 200) -> dict:
         "pinned buffer": lambda: torch.empty((case.n_real, words), dtype=torch.int32,
                                              pin_memory=True),
         "needles check": lambda: ks._check(case.shards[0], case.needles, case.lens,
-                                           case.n_real, case.max_words),
+                                           case.n_real),
         "per_launch: a card's launch into the pinned buffer": launch,
         "per_launch: a card's launch, event wait": lambda: (
             launch(), torch.cuda.current_stream(dev).record_event().synchronize()),
@@ -898,7 +894,7 @@ def host_costs(mesh, bank: tuple, stream: tuple, reps: int = 200) -> dict:
         probe_shards_into(pinned, 0, own, rows, rows, 1, K, "reduce_and", and_bits=1)
 
     def scan_pinned_launch():
-        shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1, max_words=9)
+        shards_into(scan_pinned, 0, own_scan, needles, lens, n_real=1)
 
     steps = {
         "pinned buffer": lambda: torch.empty((1, words), dtype=torch.int32, pin_memory=True),
@@ -924,12 +920,12 @@ def host_costs(mesh, bank: tuple, stream: tuple, reps: int = 200) -> dict:
             torch.cuda._sleep(1), torch.cuda.current_stream(dev).synchronize()),
         "scan: pinned buffer": lambda: torch.empty((1, scan_words), dtype=torch.int32,
                                                    pin_memory=True),
-        "scan: needles check": lambda: ks._check(stream[0], needles, lens, 1, 9),
+        "scan: needles check": lambda: ks._check(stream[0], needles, lens, 1),
         "scan: launch into the pinned buffer": scan_pinned_launch,
         "scan: launch into the pinned buffer, event wait": lambda: (
             scan_pinned_launch(), event()),
         "scan: sharded_scan_all_rows": lambda: pm.sharded_scan_all_rows(
-            mesh, stream, needles, lens, n_real=1, max_words=9),
+            mesh, stream, needles, lens, n_real=1),
     }
     return {name: us(fn) for name, fn in steps.items()}
 

@@ -55,17 +55,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries checked against the host-probe engine, the scan counters reset
    before it; every segment launch (the sparse scan's one plan call on the
    one stream tensor) checked to read just the requested block ranges
-   with real needles only; then the scan kernel against its plain version
-   on the resident stream at every shape the engine launched (a segment
-   launch timed after an L2 flush, its bound counted on the chunks the
-   query asked for), the most launched segment launch timed in turns
-   against the same ranges with its first needle alone and against a
-   one-tile launch (``segment_needle_turns``: needle issue or a fixed
-   cost), dense at 1, 2, 4 and 8 of the
-   engine's needles, with ``--old-scan`` an earlier scan kernel against
-   this one in turns (``turns_against_old_scan``), and a restarted engine
-   that loads every block from the sidecar and times every shape (needle
-   cache off, as phase 8's mesh engine);
+   with real needles only, and every dense launch (the dense scan's one
+   plan call, a dense-mode record over the whole stream) to take n_real
+   equal to its real needles, the 16-thread burst's dense launches counted
+   by n_real; then the scan kernel against its plain version on the
+   resident stream at every shape the engine launched (a segment launch
+   timed after an L2 flush, its bound counted on the chunks the query
+   asked for; a dense shape through the plan call too, its ``ms`` the
+   plan's launch into a page-locked buffer), the most launched segment
+   launch timed in turns against the same ranges with its first needle
+   alone and against a one-tile launch (``segment_needle_turns``: needle
+   issue or a fixed cost), dense at every n_real from 1 to 8 of the
+   engine's needles, the kernel alone in turns at n_real 1 and 8 (dense
+   mode into device memory and into a page-locked buffer, the plan's
+   launch, against one range in segment mode: ``dense_mode_turns``), the
+   one-card dense call against the earlier launch and ``.cpu()`` copy in
+   turns at every n_real from 1 to 8 (``dense_call_turns``), the needle
+   cache's copy of a row at refscale's width and at an 18M-bit row, with
+   ``--old-scan`` an earlier scan kernel against this one in turns
+   (``turns_against_old_scan``), and a restarted engine that loads every
+   block from the sidecar and times every shape (needle cache off, as
+   phase 8's mesh engine);
 8. mesh (K3): (a) the serving engine's resident superbanks and stream
    placed with ``shard_bank`` and the row helpers onto a 4-shard mesh (four
    cards when four are visible, else cuda:0 four times), the needle
@@ -719,25 +729,55 @@ def plain_scan(ks, rows32, needles, lens, n_real, starts=None, seg_chunks=0):
     ], dim=1)
 
 
+def one_range_into(ks, out: torch.Tensor, rows32, needles, lens, n_real: int) -> None:
+    """One segment-mode launch of one range over the whole stream into
+    ``out`` (what the one-card dense plan call launched before its
+    dense-mode record)."""
+    ks.byte_scan_ranges_into(out, 0, [rows32], [0], [rows32.shape[0]], needles, lens,
+                             n_real=n_real, count_as="stream")
+
+
+def dense_into(ks, out: torch.Tensor, rows32, needles, lens, n_real: int) -> None:
+    """The one-card dense plan call's launch on its own: dense mode over the
+    whole stream into ``out`` (a page-locked buffer, as the plan call
+    passes it, or device memory), through the single-launch entry. The plan
+    call waits inside itself, so an event after it would hold the host's
+    wake-up too; this runs the same kernel and output between CUDA events
+    (counting nothing)."""
+    needle_bytes, real_lens = ks._check(rows32, needles, lens, n_real)
+    ks._launch(rows32, needle_bytes, real_lens, rows32.shape[0], (), (), out)
+
+
 def scan_case(ks, rows32, needles, lens, n_real, *, starts=None, seg_chunks=0,
-              max_words=9, label="", time_it=True, reps=25, plain_reps=3,
-              need_chunks=None) -> dict:
+              label="", time_it=True, reps=25, plain_reps=3, need_chunks=None,
+              plan=False) -> dict:
     """Hold one scan launch against its plain version (bit-identical) and,
     with ``time_it``, time both between CUDA events; a segment launch is
     timed after an L2 flush, as a query finds its ranges. The bound counts
     ``need_chunks`` (the chunks a query asked for) when given, else every
-    chunk scanned."""
+    chunk scanned. With ``plan`` (a dense shape of the main path) the
+    one-card dense call (``sharded_scan_all_rows`` with no mesh, one
+    ``bs_scan_plan`` launch into page-locked memory) must give the same
+    words too, and ``ms`` is its launch's device time (``dense_into`` a
+    page-locked buffer), ``device_out_ms`` dense mode's into device
+    memory."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
     def kernel(_i=0):
         if starts is None:
-            return ks.byte_scan_stream(rows32, needles, lens, n_real=n_real, max_words=max_words)
+            return ks.byte_scan_stream(rows32, needles, lens, n_real=n_real)
         return ks.byte_scan_segments(rows32, starts, needles, lens, n_real=n_real,
-                                     max_words=max_words, seg_chunks=seg_chunks)
+                                     seg_chunks=seg_chunks)
 
     got = kernel()
     want = plain_scan(ks, rows32, needles, lens, n_real, starts, seg_chunks)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"scan {label}: kernel disagrees with plain version")
+    if plan and not torch.equal(pm.sharded_scan_all_rows(None, rows32, needles, lens,
+                                                         n_real=n_real), want.cpu()):
+        raise AssertionError(f"scan {label}: the one-card dense plan call disagrees with the "
+                             "plain version")
     G = got.shape[1] * 32
     real_lens = [int(v) for v in lens[:n_real]]
     hits = popcounts(got)
@@ -745,15 +785,26 @@ def scan_case(ks, rows32, needles, lens, n_real, *, starts=None, seg_chunks=0,
     case = {"G": G, "n_real": n_real, "max_abs_err": 0, "hits": hits,
             "bound_ms": bound_ms, "bound_by": bound_by, "out": got}
     if not time_it:
-        log(f"scan {label} G={G} n_real={n_real}: bit-identical")
+        log(f"scan {label} G={G} n_real={n_real}: bit-identical"
+            + (" (the plan call too)" if plan else ""))
         return case
     flush = None if starts is None else (lambda: flush_l2(rows32.device))
     case["ms"] = event_ms(kernel, reps, hide_host=True, before=flush)
+    if plan:
+        pinned = torch.empty((n_real, G // 32), dtype=torch.int32, pin_memory=True)
+        case["device_out_ms"] = case["ms"]
+        case["ms"] = event_ms(lambda i: dense_into(ks, pinned, rows32, needles, lens, n_real),
+                              reps, hide_host=True)
+        if not torch.equal(pinned, want.cpu()):
+            raise AssertionError(f"scan {label}: the launch into a page-locked buffer disagrees "
+                                 "with the plain version")
     case["plain_ms"] = event_ms(
         lambda i: plain_scan(ks, rows32, needles, lens, n_real, starts, seg_chunks),
         plain_reps, hide_host=True, before=flush)
     log(f"scan {label} G={G} n_real={n_real} lens={real_lens}: kernel_ms={case['ms']:.6f} "
-        f"plain_ms={case['plain_ms']:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        + (f"(the plan's launch into a page-locked buffer; dense mode into device memory "
+           f"{case['device_out_ms']:.6f}) " if plan else "")
+        + f"plain_ms={case['plain_ms']:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
         f"{need_chunks or G} chunks) hits={hits} bit-identical")
     return case
 
@@ -831,8 +882,7 @@ def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920,
             chunks[16 * r + j, s : s + len(nd)] = np.frombuffer(nd, np.uint8)
     rows = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
     for n_real in (1, 2, 4, 8):
-        scan_case(ks, rows, pad_s, lens_s, n_real, label=f"dense short[:{n_real}]",
-                  max_words=ks.scan_word_bucket(int(lens_s[:n_real].max())))
+        scan_case(ks, rows, pad_s, lens_s, n_real, label=f"dense short[:{n_real}]")
     # Two real rows (31, 32 bytes) and two padding rows, which match every
     # chunk and leave the real rows alone.
     case = scan_case(ks, rows, pad_l, lens_l, 4, label="dense long + 2 padding rows",
@@ -841,7 +891,7 @@ def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920,
         raise AssertionError(f"padding rows hit {case['hits'][2:]} of {G} chunks")
     for r, nd in enumerate(short + long_):
         pad, lens, row = (pad_s, lens_s, r) if r < 8 else (pad_l, lens_l, r - 8)
-        got = ks.byte_scan_stream(rows, pad, lens, n_real=8 if r < 8 else 4, max_words=9)
+        got = ks.byte_scan_stream(rows, pad, lens, n_real=8 if r < 8 else 4)
         bits = np.unpackbits(got[row].cpu().numpy().view(np.uint8), bitorder="little")
         if not np.array_equal(bits.astype(bool), scan_oracle(chunks, nd)):
             raise AssertionError(f"needle of {len(nd)} bytes: kernel differs from the oracle")
@@ -875,7 +925,7 @@ def phase_scan_kernel(dev, G: int = 4096, seg_rows: int = 81_920,
     for n_segs, ranges in ranges_by_n.items():
         starts, counts = [s for s, _ in ranges], [n for _, n in ranges]
         scan_case(ks, big, pad_s[7:8], lens_s[7:8], 1, starts=starts, seg_chunks=counts,
-                  max_words=ks.scan_word_bucket(int(lens_s[7])), need_chunks=sum(counts),
+                  need_chunks=sum(counts),
                   label=f"segments n_segs={n_segs} 1 needle", time_it=n_segs == 4)
         scan_case(ks, big, pad_s, lens_s, 8, starts=starts, seg_chunks=counts,
                   label=f"segments n_segs={n_segs} 8 needles", time_it=False)
@@ -1175,26 +1225,28 @@ def phase_engine(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
 
 
 class ScanRecorder:
-    """Wraps the one-card row cache's two scan calls (``byte_scan_stream``
-    and the sparse scan, ``sharded_scan_segments`` with no mesh: one
-    segment launch) to keep, for each launch shape (the key of
-    ``kernels.scan.launch_shapes()``), the arguments of its first launch
-    (the first with a real needle, when one comes), so the shape can be
-    re-checked on the resident stream with the engine's own needles and
-    ranges; every distinct set of real needles the engine scanned for
-    (``needle_sets``); and every segment launch's requested ranges and
-    needle lengths (``segment_launches``)."""
+    """Wraps the one-card row cache's two scan calls (the dense scan,
+    ``sharded_scan_all_rows`` with no mesh, and the sparse scan,
+    ``sharded_scan_segments`` with no mesh: one plan launch each) to keep,
+    for each launch shape (the key of ``kernels.scan.launch_shapes()``),
+    the arguments of its first launch (the first with a real needle, when
+    one comes), so the shape can be re-checked on the resident stream with
+    the engine's own needles and ranges; every distinct set of real
+    needles the engine scanned for (``needle_sets``); every segment
+    launch's requested ranges and needle lengths (``segment_launches``);
+    and every dense launch's needle lengths (``dense_launches``)."""
 
     def __init__(self):
         import bloomsearch_tpu_torch.rowcache as rc
         from bloomsearch_tpu_torch.kernels import scan as ks
 
         self.rc, self.ks = rc, ks
-        self.orig = {name: getattr(rc, name) for name in ("byte_scan_stream",
+        self.orig = {name: getattr(rc, name) for name in ("sharded_scan_all_rows",
                                                            "sharded_scan_segments")}
         self.args: dict[tuple, dict] = {}
         self.needle_sets: dict[bytes, dict] = {}
         self.segment_launches: list[tuple] = []
+        self.dense_launches: list[tuple] = []
         self.lock = threading.Lock()
 
     def _keep(self, key: tuple, **args) -> None:
@@ -1211,33 +1263,34 @@ class ScanRecorder:
     def __enter__(self):
         orig = self.orig
 
-        def stream(rows32, needles, lens, *, n_real, max_words):
-            out = orig["byte_scan_stream"](rows32, needles, lens, n_real=n_real,
-                                           max_words=max_words)
-            self._keep(("stream", rows32.shape[0], n_real, 0, (), max_words),
-                       needles=needles, lens=lens, n_real=n_real, max_words=max_words)
+        def dense(mesh, rows32, needles, lens, *, n_real):
+            out = orig["sharded_scan_all_rows"](mesh, rows32, needles, lens, n_real=n_real)
+            if mesh is not None:
+                raise AssertionError("the one-card serving engine made a sharded scan")
+            self._keep(("stream", rows32.shape[0], n_real, 0, ()), needles=needles, lens=lens,
+                       n_real=n_real)
+            with self.lock:
+                self.dense_launches.append(tuple(int(v) for v in np.asarray(lens)))
             return out
 
-        def segments(mesh, rows32, seg_starts, needles, lens, *, n_real, max_words,
-                     seg_chunks):
+        def segments(mesh, rows32, seg_starts, needles, lens, *, n_real, seg_chunks):
             out = orig["sharded_scan_segments"](mesh, rows32, seg_starts, needles, lens,
-                                                n_real=n_real, max_words=max_words,
-                                                seg_chunks=seg_chunks)
+                                                n_real=n_real, seg_chunks=seg_chunks)
             if mesh is not None:
                 raise AssertionError("the one-card serving engine made a sharded scan")
             _, counts = self.ks.segment_layout(seg_starts, seg_chunks, rows32.shape[0])
-            key = ("segments", sum(counts), n_real, len(counts), tuple(counts), max_words)
+            key = ("segments", sum(counts), n_real, len(counts), tuple(counts))
             starts = [int(v) for v in seg_starts]
             requested = [int(v) for v in np.broadcast_to(seg_chunks, (len(starts),))]
             self._keep(key, starts=starts, needles=needles, lens=lens, n_real=n_real,
-                       max_words=max_words, seg_chunks=requested)
+                       seg_chunks=requested)
             with self.lock:
                 self.segment_launches.append((
                     tuple(zip(starts, requested)),
                     tuple(int(v) for v in np.asarray(lens)[:n_real])))
             return out
 
-        self.rc.byte_scan_stream, self.rc.sharded_scan_segments = stream, segments
+        self.rc.sharded_scan_all_rows, self.rc.sharded_scan_segments = dense, segments
         return self
 
     def __exit__(self, *exc):
@@ -1256,11 +1309,11 @@ def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> d
             top[key[0]] = key
     reported = {}
     for key in sorted(launched):
-        mode, G, n_real, n_segs, counts, max_words = key
+        mode, G, n_real, n_segs, counts = key
         args = recorded[key]
-        if mode == "stream" and G != matrix.shape[0]:
-            raise AssertionError(f"dense launch over {G} rows; the stream now has "
-                                 f"{matrix.shape[0]}")
+        if mode == "stream" and (G != matrix.shape[0] or counts != ()):
+            raise AssertionError(f"dense launch {key}: want dense mode over the stream's "
+                                 f"{matrix.shape[0]} rows")
         timed_shape = key == top[mode]
         segments = mode == "segments"
         case = scan_case(
@@ -1268,7 +1321,7 @@ def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> d
             starts=args["starts"] if segments else None,
             seg_chunks=args["seg_chunks"] if segments else 0,
             need_chunks=sum(args["seg_chunks"]) if segments else None,
-            max_words=max_words, time_it=timed_shape,
+            time_it=timed_shape, plan=not segments,
             reps=25 if segments else 10, plain_reps=3 if segments else 1,
             label=f"main path {key} x{launched[key]}",
         )
@@ -1295,6 +1348,22 @@ def check_segment_launches(launches: list[tuple], segments: dict) -> None:
         f"ranges only, real needles only")
 
 
+def check_dense_launches(launches: list[tuple], burst: list[tuple]) -> dict:
+    """Every dense launch of the serving engine's queries (each its needle
+    lengths) took its real needles only: n_real equals the count of real
+    needles, no padding row. -> how many of the 16-thread burst's dense
+    launches had each real-needle count."""
+    for lens in launches:
+        if not lens or not all(lens):
+            raise AssertionError(f"a dense launch with padding rows: lengths {lens}")
+    counts: dict = {}
+    for lens in burst:
+        counts[len(lens)] = counts.get(len(lens), 0) + 1
+    log(f"serving: {len(launches)} query dense launches, each n_real = its real needles; the "
+        f"16-thread burst's {len(burst)} dense launches by n_real: {dict(sorted(counts.items()))}")
+    return dict(sorted(counts.items()))
+
+
 def segment_needle_turns(ks, matrix: torch.Tensor, args: dict, reps: int = 25) -> dict:
     """The main path's most launched segment launch (``args``: its ranges
     and n_real real needles) timed in turns after an L2 flush against the
@@ -1313,8 +1382,7 @@ def segment_needle_turns(ks, matrix: torch.Tensor, args: dict, reps: int = 25) -
         padded, lens = args["needles"][:n], args["lens"][:n]
 
         def call(i, st=st, ct=ct, n=n, padded=padded, lens=lens):
-            return ks.byte_scan_segments(matrix, st, padded, lens, n_real=n,
-                                         max_words=args["max_words"], seg_chunks=ct)
+            return ks.byte_scan_segments(matrix, st, padded, lens, n_real=n, seg_chunks=ct)
 
         got = call(0)
         if not torch.equal(got, plain_scan(ks, matrix, padded, lens, n, st, ct)):
@@ -1349,18 +1417,126 @@ def engine_needles(needle_sets: list[dict]) -> list[bytes]:
 
 
 def dense_sweep(ks, matrix: torch.Tensor, real: list[bytes]) -> dict:
-    """Dense mode on the resident stream at n_real in {1, 2, 4, 8} with the
-    engine's own needles, each bit-identical to the plain version and
-    timed."""
+    """Dense mode on the resident stream at every n_real from 1 to 8 with
+    the engine's own needles, each bit-identical to the plain version (and
+    the one-card plan call) and timed."""
     sweep = {}
-    for n_real in (1, 2, 4, 8):
+    for n_real in range(1, ks.MAX_SCAN_NEEDLES + 1):
         padded, lens = pack_rows(real[:n_real], n_real)
-        case = scan_case(ks, matrix, padded, lens, n_real, reps=10, plain_reps=1,
-                         max_words=ks.scan_word_bucket(int(lens.max())),
+        case = scan_case(ks, matrix, padded, lens, n_real, reps=10, plain_reps=1, plan=True,
                          label=f"dense sweep {[nd.decode('latin-1') for nd in real[:n_real]]}")
         case.pop("out")
         sweep[n_real] = case
     return sweep
+
+
+DENSE_FORMS = ("dense", "segment", "dense_pinned")
+DENSE_ROUNDS = 5  # (forms, then back) rounds: ten turns a form
+
+
+def dense_mode_turns(ks, matrix: torch.Tensor, real: list[bytes], reps: int = 10,
+                     rounds: int = DENSE_ROUNDS) -> dict:
+    """The kernel alone, in turns (``DENSE_FORMS`` and back, ``rounds``
+    times, each turn the median of ``reps`` launches between CUDA events):
+    dense mode into device memory, the one-range segment mode over the
+    whole stream into device memory (``one_range_into``), and dense mode
+    into a page-locked buffer (the one-card dense plan call's launch,
+    ``dense_into``), at n_real = 1 and 8 of the engine's needles. Each
+    form's words equal dense mode's. The verdict compares the segment mode
+    with dense mode (``exp_mesh_join.spread_verdict``: "plan slower" reads
+    the segment mode slower): the reason the plan's record for one range
+    over a whole base is a dense-mode one."""
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    G = matrix.shape[0]
+    result = {}
+    for n_real in (1, ks.MAX_SCAN_NEEDLES):
+        padded, lens = pack_rows(real[:n_real], n_real)
+        device_out = torch.empty((n_real, G // 32), dtype=torch.int32, device=matrix.device)
+        pinned = torch.empty((n_real, G // 32), dtype=torch.int32, pin_memory=True)
+        forms = {
+            "dense": lambda i: ks.byte_scan_stream(matrix, padded, lens, n_real=n_real),
+            "segment": lambda i: one_range_into(ks, device_out, matrix, padded, lens, n_real),
+            "dense_pinned": lambda i: dense_into(ks, pinned, matrix, padded, lens, n_real),
+        }
+        want = forms["dense"](0)
+        forms["segment"](0)
+        forms["dense_pinned"](0)
+        torch.cuda.synchronize()
+        if not (torch.equal(device_out, want) and torch.equal(pinned, want.cpu())):
+            raise AssertionError(f"dense mode turns n_real={n_real}: the forms disagree")
+        times: dict = {form: [] for form in DENSE_FORMS}
+        for form in (DENSE_FORMS + DENSE_FORMS[::-1]) * rounds:
+            times[form].append(event_ms(forms[form], reps, hide_host=True))
+        result[n_real] = {"ms": times,
+                          "median_ms": {f: statistics.median(t) for f, t in times.items()},
+                          "verdict": mj.spread_verdict(times["segment"], times["dense"])}
+        log(f"dense mode turns n_real={n_real} (G={G}, device ms, {reps} launches a turn): "
+            + "; ".join(f"{f} " + "/".join(f"{v:.6f}" for v in t) for f, t in times.items())
+            + "; medians " + ", ".join(f"{f} {v:.6f}"
+                                       for f, v in result[n_real]["median_ms"].items())
+            + f"; segment against dense: {result[n_real]['verdict'].replace('plan', 'segment')}")
+    return result
+
+
+def dense_call_turns(ks, matrix: torch.Tensor, real: list[bytes], reps: int = 20,
+                     rounds: int = DENSE_ROUNDS) -> dict:
+    """The one-card dense scan as a caller sees it, at every n_real from 1
+    to 8 of the engine's needles, in two forms timed in turns ((plan, copy,
+    copy, plan) ``rounds`` times: ten turns a form, each the host-clock
+    median of ``reps`` calls, ``exp_mesh_join.call_ms``): ``plan``, the
+    package's (``sharded_scan_all_rows`` with no mesh: one ``bs_scan_plan``
+    launch into page-locked memory), and ``copy``, the earlier one (dense
+    mode into a device tensor, then ``.cpu()``); their words equal, with
+    ``exp_mesh_join.spread_verdict``'s reading."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    result = {}
+    for n_real in range(1, ks.MAX_SCAN_NEEDLES + 1):
+        padded, lens = pack_rows(real[:n_real], n_real)
+        calls = {
+            "plan": lambda: pm.sharded_scan_all_rows(None, matrix, padded, lens, n_real=n_real),
+            "copy": lambda: ks.byte_scan_stream(matrix, padded, lens, n_real=n_real).cpu(),
+        }
+        if not torch.equal(calls["plan"](), calls["copy"]()):
+            raise AssertionError(f"dense call n_real={n_real}: the plan call differs from the "
+                                 "launch and copy")
+        times: dict = {form: [] for form in calls}
+        for form in ("plan", "copy", "copy", "plan") * rounds:
+            times[form].append(mj.call_ms(calls[form], [matrix.device], reps))
+        result[n_real] = {"call_ms": times,
+                          "median_ms": {f: statistics.median(t) for f, t in times.items()},
+                          "verdict": mj.spread_verdict(times["plan"], times["copy"])}
+        log(f"dense call turns n_real={n_real}: " + "; ".join(
+            f"{f} " + "/".join(f"{v:.6f}" for v in t) for f, t in times.items())
+            + " ms; medians " + ", ".join(f"{f} {v:.6f}"
+                                          for f, v in result[n_real]["median_ms"].items())
+            + f"; {result[n_real]['verdict']}")
+    return result
+
+
+def needle_cache_copy_us(words_of: dict, reps: int = 200) -> dict:
+    """What the needle cache's own copy of a row costs (host clock, median
+    of ``reps``): ``row.copy()`` of a uint32 row of each size in
+    ``words_of`` (label -> words), a row of a larger page-locked output, as
+    a dense call returns it."""
+    result = {}
+    for label, words in words_of.items():
+        out = torch.empty((2, words), dtype=torch.int32, pin_memory=True).fill_(7)
+        row = out.numpy().view(np.uint32)[1]
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            kept = row.copy()
+            times.append((time.perf_counter() - t0) * 1e6)
+        if np.shares_memory(kept, row) or not kept.flags.owndata:
+            raise AssertionError("the needle cache's copy shares the launch output's memory")
+        result[label] = {"words": words, "bytes": words * 4, "us": statistics.median(times)}
+    log("needle cache row copy (host clock, median of "
+        f"{reps}): " + ", ".join(f"{k} ({v['bytes']} bytes) {v['us']:.2f} us"
+                                 for k, v in result.items()))
+    return result
 
 
 def old_scan_launcher(source: str):
@@ -1418,8 +1594,7 @@ def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[byt
         padded, lens = pack_rows(real[:n_real], n_real)
         cases[f"dense n_real={n_real}"] = (
             lambda i, p=padded, ln=lens, n=n_real: old(matrix, p, ln, n),
-            lambda i, p=padded, ln=lens, n=n_real: ks.byte_scan_stream(
-                matrix, p, ln, n_real=n, max_words=9),
+            lambda i, p=padded, ln=lens, n=n_real: ks.byte_scan_stream(matrix, p, ln, n_real=n),
             None, scan_bound(rows, [int(v) for v in lens], [0] * n_real))
     starts, counts = seg_args["starts"], seg_args["seg_chunks"]
     n_real = seg_args["n_real"]
@@ -1427,8 +1602,7 @@ def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[byt
     cases["main-path segments"] = (
         lambda i: old(matrix, seg_args["needles"], seg_args["lens"], n_real, read, rounded),
         lambda i: ks.byte_scan_segments(matrix, starts, seg_args["needles"], seg_args["lens"],
-                                        n_real=n_real, max_words=seg_args["max_words"],
-                                        seg_chunks=counts),
+                                        n_real=n_real, seg_chunks=counts),
         flush, scan_bound(sum(counts), [int(v) for v in seg_args["lens"][:n_real]],
                           [0] * n_real))
     worst, near = repeated_byte_stream(worst_rows)
@@ -1437,8 +1611,7 @@ def turns_against_old_scan(ks, source: str, matrix: torch.Tensor, real: list[byt
         pad_w, lens_w = pack_rows([nd], 1)
         cases[f"repeated-byte stream, 32-byte needle, other {which} byte"] = (
             lambda i, p=pad_w, ln=lens_w: old(worst_t, p, ln, 1),
-            lambda i, p=pad_w, ln=lens_w: ks.byte_scan_stream(worst_t, p, ln, n_real=1,
-                                                              max_words=9),
+            lambda i, p=pad_w, ln=lens_w: ks.byte_scan_stream(worst_t, p, ln, n_real=1),
             None, scan_bound(worst_rows, [32], [0]))
     result = {}
     for label, (old_fn, new_fn, before, (bound_ms, bound_by)) in cases.items():
@@ -1494,6 +1667,7 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
             out["stream_device_bytes"] = rc_stats["device_bytes"]
             after_warmup = ks.launch_counts()
             warmup_segments = len(recorder.segment_launches)
+            warmup_dense = len(recorder.dense_launches)
             log(f"serving warmup: {out['warmup_s']:.3f} s, {n_blocks} blocks pinned, stream "
                 f"{rc_stats['device_bytes']} device bytes, scan launches {after_warmup}, "
                 f"timeline {engine.stats().get('warmup')}")
@@ -1512,9 +1686,11 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
             # the 16 threads' coalescing below depends on timing.
             out["launches_sequential"] = ks.launch_counts()
             log(f"serving sequential queries: scan launches {out['launches_sequential']}")
+            burst_from = len(recorder.dense_launches)
             run_concurrent(engine, shapes, results, out)
             out["launches"] = ks.launch_counts()
             launched = ks.launch_shapes()
+            burst_dense = recorder.dense_launches[burst_from:]
         for counter in ("stream", "segments"):
             if out["launches"][counter] <= after_warmup[counter]:
                 raise AssertionError(f"warm queries launched no {counter} scan: {out['launches']}")
@@ -1523,17 +1699,23 @@ def phase_serving(dev, target_mb: int, seed: int, sidecar: str, reps: int = 7,
         out["row_cache"] = engine.stats()["row_cache"]
         log(f"serving: scan launches {out['launches']}, row cache {out['row_cache']}, "
             f"max_memory_allocated {out.get('max_memory_allocated')}")
-        log("serving launches per (mode, G, n_real, n_segs, range chunks, word bucket): "
+        log("serving launches per (mode, G, n_real, n_segs, range chunks): "
             + json.dumps(sorted([list(k) + [n] for k, n in launched.items()])))
         with engine._row_cache._lock:
             matrix = engine._row_cache._bucket.matrix
             segments = dict(engine._row_cache._bucket.segments)
         check_segment_launches(recorder.segment_launches[warmup_segments:], segments)
+        out["burst_dense_n_real"] = check_dense_launches(
+            recorder.dense_launches[warmup_dense:], burst_dense)
         out["scan_cases"] = recheck_scans(ks, matrix, launched, recorder.args)
         out["segment_needle_turns"] = segment_needle_turns(
             ks, matrix, out["scan_cases"]["segments"]["args"])
         real = engine_needles(list(recorder.needle_sets.values()))
         out["dense_sweep"] = dense_sweep(ks, matrix, real)
+        out["dense_mode_turns"] = dense_mode_turns(ks, matrix, real)
+        out["dense_call_turns"] = dense_call_turns(ks, matrix, real)
+        out["needle_cache_copy_us"] = needle_cache_copy_us(
+            {"refscale row": matrix.shape[0] // 32, "18M-bit row (xlscale)": 18_000_000 // 32})
         if old_scan is not None:
             out["old_scan_turns"] = turns_against_old_scan(
                 ks, old_scan, matrix, real, out["scan_cases"]["segments"]["args"])
@@ -1726,9 +1908,9 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
     scans = []
     for args in needle_sets:
         got = pm.sharded_scan_all_rows(mesh, stream, args["needles"], args["lens"],
-                                       n_real=args["n_real"], max_words=args["max_words"])
-        want = ks.byte_scan_stream(matrix, args["needles"], args["lens"], n_real=args["n_real"],
-                                   max_words=args["max_words"]).cpu()
+                                       n_real=args["n_real"])
+        want = ks.byte_scan_stream(matrix, args["needles"], args["lens"],
+                                   n_real=args["n_real"]).cpu()
         words = G // 32
         pad = got[:, words:]
         real = torch.as_tensor([int(v) > 0 for v in args["lens"][: args["n_real"]]])
@@ -1780,7 +1962,7 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
                 pk.probe_plain(joined[0], r, s_, case["T"], case["K"])),
             probe_bound(case["T"], card_cols, out_rows), reps)
     args = needle_sets[0]
-    kw = dict(n_real=args["n_real"], max_words=args["max_words"])
+    kw = dict(n_real=args["n_real"])
     real_lens = [int(v) for v in args["lens"][: args["n_real"]]]
     w = stream[0].shape[0] // 32
     scan_bounds = [
@@ -1793,7 +1975,7 @@ def phase_mesh(dev, resident: dict, reps: int = 15) -> tuple[dict, dict]:
         f"{tuple(stream[0].shape)}, unsharded {tuple(matrix.shape)})",
         mj.scan_case("sharded_scan_all_rows", mesh, stream, args["needles"], args["lens"], **kw),
         copy_lib,
-        lambda i: ks.byte_scan_stream(matrix, args["needles"], args["lens"], **kw).cpu(),
+        lambda i: pm.sharded_scan_all_rows(None, matrix, args["needles"], args["lens"], **kw),
         lambda sh: ks.byte_scan_stream(sh, args["needles"], args["lens"], **kw), matrix,
         lambda i: plain_scan(ks, matrix, args["needles"], args["lens"], args["n_real"]),
         max(scan_bounds), 5, plain_reps=1)
@@ -1866,7 +2048,7 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
     cases = [(args["starts"], args["seg_chunks"], args) for args in resident["segment_args"]]
     cases.append(([rows - block // 2 - 3, total - block], [block, block], top))
     for starts, counts, args in cases:
-        kw = dict(n_real=args["n_real"], max_words=args["max_words"])
+        kw = dict(n_real=args["n_real"])
         got, base = pm.sharded_scan_segments(mesh, stream, starts, args["needles"], args["lens"],
                                              seg_chunks=counts, **kw)
         one, one_base = pm.sharded_scan_segments(None, flat, starts, args["needles"],
@@ -1897,7 +2079,7 @@ def mesh_segment_scans(dev, mesh, stream: tuple, matrix: torch.Tensor, resident:
     starts, counts = top["starts"], top["seg_chunks"]
     case = mj.SparseCase(f"K3-e main path ({len(starts)} ranges, n_real = {top['n_real']})",
                          mesh, stream, matrix, starts, counts, top["needles"], top["lens"],
-                         top["n_real"], top["max_words"])
+                         top["n_real"])
     turns = mj.sparse_turns(case, reps, log=log)
     real_lens = [int(v) for v in top["lens"][: top["n_real"]]]
     words, base = case.sharded()
@@ -2414,12 +2596,20 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was not launched on the serving path")
         case = scan_cases[counter]
         log(f"{name}: main-path shape {case['key']} reported")
-        kernels.append({
-            "name": name, "route": "cuda", "source": SCAN_SOURCE, "replaces": replaces,
+        entry = {
+            "name": name, "route": "cuda", "source": SCAN_SOURCE, "entry": "bs_scan_plan",
+            "replaces": replaces,
             "launches": serving["launches"][counter], "max_abs_err": case["max_abs_err"],
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
-        })
+        }
+        if counter == "stream":
+            turns = serving["dense_call_turns"][case["n_real"]]
+            entry.update({"device_out_ms": case["device_out_ms"],
+                          "call_ms": turns["median_ms"]["plan"],
+                          "copy_call_ms": turns["median_ms"]["copy"],
+                          "call_verdict": turns["verdict"]})
+        kernels.append(entry)
     for name, (source, entry, replaces) in MESH_WRAPPERS.items():
         case = mesh_entries[name]
         kernels.append({

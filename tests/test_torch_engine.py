@@ -332,7 +332,7 @@ def test_serving_sparse_and_dense_launches_match_reference(tmp_path, monkeypatch
         finally:
             engine.stop(timeout=TIMEOUT)
     modes = []
-    for fn in ("byte_scan_stream", "sharded_scan_segments"):
+    for fn in ("sharded_scan_all_rows", "sharded_scan_segments"):
         orig = getattr(rc, fn)
         monkeypatch.setattr(
             rc, fn, lambda *a, _orig=orig, _fn=fn, **k: modes.append(_fn) or _orig(*a, **k)
@@ -358,7 +358,7 @@ def test_serving_sparse_and_dense_launches_match_reference(tmp_path, monkeypatch
             got = multiset(port.query_sync(make(bt), timeout=TIMEOUT))
             assert got == multiset(ref.query_sync(make(bs), timeout=TIMEOUT)), qname
             assert got, qname
-            assert modes == (["byte_scan_stream"] if qname == "common" else ["sharded_scan_segments"]), (qname, modes)
+            assert modes == (["sharded_scan_all_rows"] if qname == "common" else ["sharded_scan_segments"]), (qname, modes)
     finally:
         ref.stop(timeout=TIMEOUT)
         port.stop(timeout=TIMEOUT)
@@ -432,7 +432,7 @@ def test_scan_kernel_failure_fails_the_query(tmp_path, monkeypatch):
         query = QUERIES["and_2"](bt)
         assert engine.query_sync(query, timeout=TIMEOUT)
         engine._row_cache.needle_cache_enabled = False
-        monkeypatch.setattr(rc, "byte_scan_stream", _failing)
+        monkeypatch.setattr(rc, "sharded_scan_all_rows", _failing)
         monkeypatch.setattr(rc, "sharded_scan_segments", _failing)
         with pytest.raises(KernelFailure):
             engine.query_sync(query, timeout=TIMEOUT)
@@ -446,7 +446,7 @@ def test_scan_kernel_failure_fails_warmup(tmp_path, monkeypatch):
     write_store(bt, tmp_path / "port")
     engine = open_engine(bt, tmp_path / "port", **SERVING)
     try:
-        monkeypatch.setattr(rc, "byte_scan_stream", _failing)
+        monkeypatch.setattr(rc, "sharded_scan_all_rows", _failing)
         with pytest.raises(KernelFailure):
             engine.warmup(block=True, timeout=120)
     finally:

@@ -349,10 +349,10 @@ def test_scan_wrapper_matches_reference(n):
         stream_stride=ks.STREAM_STRIDE, interpret=True,
     )
     trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
-    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=6, max_words=9)
+    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=6)
     np.testing.assert_array_equal(words(got), words(want))
     unsharded = ks.byte_scan_stream(
-        torch.from_numpy(rows32.copy()), padded, lens, n_real=6, max_words=9
+        torch.from_numpy(rows32.copy()), padded, lens, n_real=6
     )
     np.testing.assert_array_equal(words(got), words(unsharded))
     bits = pm.unpack_bitmap(words(got), G)
@@ -380,9 +380,8 @@ def test_scan_wrapper_with_more_shards_than_a_launch_holds():
     rows32 = chunks.view(np.int32)
     trows = pm.sharded_update_rows(tmesh, pm.sharded_zeros_rows(tmesh, G), rows32, 0)
     assert [len(c.launches) for c in pm.card_layout(trows, 0, ks.MAX_SEGMENTS)] == [3]
-    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=3, max_words=9)
-    unsharded = ks.byte_scan_stream(torch.from_numpy(rows32.copy()), padded, lens, n_real=3,
-                                    max_words=9)
+    got = pm.sharded_scan_all_rows(tmesh, trows, padded, lens, n_real=3)
+    unsharded = ks.byte_scan_stream(torch.from_numpy(rows32.copy()), padded, lens, n_real=3)
     np.testing.assert_array_equal(words(got), words(unsharded))
     jmesh = jm.default_mesh(8)
     head = rows32[: 512 * 8]
@@ -736,7 +735,7 @@ def test_sharded_segments_match_unsharded_segments_and_reference(n, monkeypatch)
                         for first, ranges in plan)
         or orig(out, plan, *a, **kw)))
     got, base = pm.sharded_scan_segments(tmesh, trows, starts, padded, lens, n_real=4,
-                                         max_words=9, seg_chunks=counts)
+                                         seg_chunks=counts)
     pieces, want_base = pm.segment_pieces(starts, counts, 512, n)
     assert base == want_base and got.shape == (4, sum(p[2] for p in pieces) // 32)
     # One launch a run of up to 4 pieces (all in one plan), reading exactly the pieces.
@@ -744,12 +743,12 @@ def test_sharded_segments_match_unsharded_segments_and_reference(n, monkeypatch)
     read = [r for _, ranges in launched for r in ranges]
     assert read == [(trows[i].data_ptr(), r, c) for i, r, c in pieces]
     flat = torch.from_numpy(rows32.copy())
-    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=4, max_words=9,
+    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=4,
                                    seg_chunks=counts).numpy()
     read_at, rounded = ks.segment_layout(starts, counts, G)
     single_base = [int(o) + s - r for o, s, r in zip(np.cumsum([0] + rounded[:-1]), starts,
                                                      read_at)]
-    dense = ks.byte_scan_stream(flat, padded, lens, n_real=4, max_words=9).numpy()
+    dense = ks.byte_scan_stream(flat, padded, lens, n_real=4).numpy()
     seg = max(512, 1 << (max(counts) - 1).bit_length())
     jax_starts = np.array(starts, np.int32)
     jax_base = [p * seg + s - min(s, G - seg) for p, s in enumerate(starts)]
@@ -785,7 +784,7 @@ def test_sharded_segments_count_only_cuda_launches():
     stream = pm.sharded_zeros_rows(mesh, 2048)
     needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
     out, base = pm.sharded_scan_segments(mesh, stream, [500], needle, np.ones(1, np.int32),
-                                         n_real=1, max_words=2, seg_chunks=[30])
+                                         n_real=1, seg_chunks=[30])
     assert base == [20] and out.shape == (1, 2) and not out.is_pinned()
     assert pm.launch_counts()["sharded_scan_segments"] == 0
     assert ks.launch_counts() == {"stream": 0, "segments": 0}
@@ -803,8 +802,8 @@ def test_ranges_into_a_wide_output_keep_other_words():
     lens = np.array([1, 2], np.int32)
     out = torch.full((2, 9), 0x5A5A5A5A, dtype=torch.int32)
     ks.byte_scan_ranges_into(out, 2, [bases[1], bases[0], bases[1]], [32, 0, 96], [64, 32, 32],
-                             padded, lens, n_real=2, max_words=2)
-    want = torch.cat([ks.byte_scan_stream(b[s : s + c], padded, lens, n_real=2, max_words=2)
+                             padded, lens, n_real=2)
+    want = torch.cat([ks.byte_scan_stream(b[s : s + c], padded, lens, n_real=2)
                       for b, s, c in ((bases[1], 32, 64), (bases[0], 0, 32), (bases[1], 96, 32))],
                      dim=1)
     assert torch.equal(out[:, 2:6], want)
@@ -812,7 +811,7 @@ def test_ranges_into_a_wide_output_keep_other_words():
     for st, ct in (([0], [48]), ([112], [32]), ([0] * 5, [32] * 5)):
         with pytest.raises(ValueError):
             ks.byte_scan_ranges_into(out, 0, [bases[0]] * len(st), st, ct, padded, lens,
-                                     n_real=2, max_words=2)
+                                     n_real=2)
 
 
 def plan_spy(monkeypatch) -> list:
@@ -850,7 +849,7 @@ def test_sparse_plan_records_follow_the_pieces(n, monkeypatch):
     needle = np.zeros((2, ks.MAX_SCAN_WINDOW), np.int32)
     calls = plan_spy(monkeypatch)
     out, base = pm.sharded_scan_segments(tmesh, stream, starts, needle, np.ones(2, np.int32),
-                                         n_real=2, max_words=2, seg_chunks=counts)
+                                         n_real=2, seg_chunks=counts)
     pieces, want_base = pm.segment_pieces(starts, counts, shard_rows, n)
     launches = [l for _, ls in pm.piece_launches(pieces, [s.device for s in shards],
                                                  ks.MAX_SEGMENTS) for l in ls]
@@ -875,23 +874,25 @@ def test_sparse_plan_records_follow_the_pieces(n, monkeypatch):
 def test_dense_plan_records_follow_the_card_layout(n, monkeypatch):
     """``sharded_scan_all_rows`` hands ``card_layout``'s launches (whole
     shards, up to 4 a launch) to one plan call counted as dense launches;
-    the records hold every shard whole at its word offset."""
+    the records hold every shard whole at its word offset, a launch of one
+    shard as a dense-mode record (``n_ranges`` 0 over its base's rows)."""
     shard_rows = 512
     tmesh = pm.default_mesh(n, "cpu")
     stream = pm.sharded_zeros_rows(tmesh, shard_rows * n) if n > 1 else (
         pm.sharded_zeros_rows(None, shard_rows),)
     needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
     calls = plan_spy(monkeypatch)
-    out = pm.sharded_scan_all_rows(tmesh, stream, needle, np.ones(1, np.int32), n_real=1,
-                                   max_words=2)
+    out = pm.sharded_scan_all_rows(tmesh, stream, needle, np.ones(1, np.int32), n_real=1)
     assert out.shape == (1, shard_rows * n // 32) and out.all()
     (plan, count_as), = calls
     runs = [run for card in pm.card_layout(stream, 0, ks.MAX_SEGMENTS) for run in card.launches]
     assert count_as == "stream" and len(plan) == len(runs) == -(-n // ks.MAX_SEGMENTS)
     for rec, run in zip(ks.plan_records(plan, {torch.device("cpu"): None}), runs):
-        assert record_fields(rec) == (-1, len(run), None, [stream[i].data_ptr() for i in run],
-                                      [0] * len(run), [shard_rows] * len(run), shard_rows,
-                                      run[0] * shard_rows // 32)
+        ranges = len(run) if len(run) > 1 else 0
+        bases = [stream[i].data_ptr() for i in run][:ranges]
+        assert record_fields(rec) == (-1, ranges, None, bases, [0] * ranges,
+                                      [shard_rows] * ranges, shard_rows, run[0] * shard_rows // 32)
+        assert rec.base[0] == stream[run[0]].data_ptr()
 
 
 PROBE_WRAPPERS = {

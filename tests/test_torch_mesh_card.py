@@ -182,12 +182,12 @@ def test_sharded_scan_matches_shards_joined_by_hand(dev, kind):
     assert tuple(s.device for s in stream) == mesh.devices
     ks.reset_launch_counts()
     pm.reset_launch_counts()
-    got = pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=4, max_words=9)
+    got = pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=4)
     assert ks.launch_counts() == {"stream": launches_per_call(mesh, ks.MAX_SEGMENTS),
                                   "segments": 0}
     assert pm.launch_counts()["sharded_scan_all_rows"] == 1
     assert got.shape == (4, G // 32) and got.is_pinned()
-    by_hand = torch.cat([ks.byte_scan_stream(s, padded, lens, n_real=4, max_words=9).cpu()
+    by_hand = torch.cat([ks.byte_scan_stream(s, padded, lens, n_real=4).cpu()
                          for s in stream], dim=1)
     assert torch.equal(got, by_hand)
     want = scan_oracle(chunks, needles)
@@ -212,7 +212,7 @@ def test_pageable_output_is_refused(dev):
     needle = np.zeros((1, ks.MAX_SCAN_WINDOW), np.int32)
     with pytest.raises(RuntimeError, match="cudaError"):
         ks.byte_scan_plan_into(torch.zeros((1, 2), dtype=torch.int32), [(0, [(stream, 0, 64)])],
-                               needle, np.ones(1, np.int32), n_real=1, max_words=9)
+                               needle, np.ones(1, np.int32), n_real=1)
     assert sum(pk.launch_counts().values()) == 0
     # The same outputs page-locked: the launches run and write every word.
     pinned = torch.full((T, 4), -7, dtype=torch.int32).pin_memory()
@@ -255,7 +255,7 @@ def test_a_fresh_thread_launches_into_the_joined_bitmap(dev, name):
     def run():
         if name == "sharded_query_step":
             return pm.sharded_query_step(mesh, bank2d, rows, shifts, (1 << T) - 1, T, K)[0]
-        return pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=4, max_words=9)
+        return pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=4)
 
     want = run()
     got: list = []

@@ -198,7 +198,7 @@ def single_device_rule(ranges, cap: int) -> str:
 def test_mesh_serving_query_matches_reference(serving, monkeypatch, name):
     cache = serving["port"]._row_cache
     modes, batches = [], []
-    for fn in ("byte_scan_stream", "sharded_scan_all_rows", "sharded_scan_segments"):
+    for fn in ("sharded_scan_all_rows", "sharded_scan_segments"):
         orig = getattr(rc, fn)
         monkeypatch.setattr(
             rc, fn, lambda *a, _o=orig, _f=fn, **k: modes.append(_f) or _o(*a, **k)

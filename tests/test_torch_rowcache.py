@@ -132,6 +132,25 @@ class Pair:
         return self.scan_many([pair], needles)[pair[1].key]
 
 
+def spy_plans(monkeypatch, plans: list) -> None:
+    """Record every scan plan call's launches in ``plans`` (each launch as
+    (first word, [(base pointer, first row, rows), ...])) and count each
+    launch in ``kernels.scan`` as the wrapper does on the card: the CPU's
+    plain version counts nothing."""
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    orig = pm.byte_scan_plan_into
+
+    def plan_into(out, plan, needles, lens, *, n_real, count_as="segments"):
+        plans.append([(w, [(b.data_ptr(), s, c) for b, s, c in ranges]) for w, ranges in plan])
+        for _, ranges in plan:
+            ks._count(count_as, sum(c for _, _, c in ranges), n_real, ks.launched_ranges(ranges))
+        return orig(out, plan, needles, lens, n_real=n_real, count_as=count_as)
+
+    monkeypatch.setattr(pm, "byte_scan_plan_into", plan_into)
+
+
 class TestDeviceRowCache:
     def test_scan_superset_of_host_and_matches_oracle(self):
         rng = random.Random(3)
@@ -441,7 +460,10 @@ class TestSparseSegmentScan:
         on its ``_scan`` and ``_scan_segments``), and the candidate matrices
         equal its own (``Pair``). On the CPU the wrappers count nothing, so
         the spy counts each launch of the plan as the wrapper does on the
-        card: the "segments" shape keys are the single-device launch's."""
+        card: the "segments" shape keys are the single-device launch's, and
+        a dense request is one "stream" launch of one range over the whole
+        stream (``sharded_scan_all_rows`` with no mesh), a dense-mode
+        record."""
         from bloomsearch_tpu_torch.kernels import scan as ks
         from bloomsearch_tpu_torch.parallel import mesh as pm
 
@@ -457,8 +479,7 @@ class TestSparseSegmentScan:
             orig = getattr(cache.ref, name)
             setattr(cache.ref, name,
                     lambda *a, _o=orig, _n=name, **k: modes["ref"].append(_n) or _o(*a, **k))
-        orig_stream, orig_sparse = rc.byte_scan_stream, rc.sharded_scan_segments
-        orig_plan = pm.byte_scan_plan_into
+        orig_dense, orig_sparse = rc.sharded_scan_all_rows, rc.sharded_scan_segments
         plans = []
 
         def sparse(mesh, rows32, *a, **k):
@@ -466,19 +487,14 @@ class TestSparseSegmentScan:
             modes["port"].append("_scan_segments")
             return orig_sparse(mesh, rows32, *a, **k)
 
-        def plan_into(out, plan, needles, lens, *, n_real, max_words, count_as="segments"):
-            plans.append([[(b.data_ptr(), s, c) for b, s, c in ranges] for _, ranges in plan])
-            for _, ranges in plan:
-                counts = [c for _, _, c in ranges]
-                ks._count(count_as, sum(counts), n_real, counts, max_words)
-            return orig_plan(out, plan, needles, lens, n_real=n_real, max_words=max_words,
-                             count_as=count_as)
+        def dense(mesh, rows32, *a, **k):
+            assert mesh is None and isinstance(rows32, torch.Tensor)
+            modes["port"].append("_scan")
+            return orig_dense(mesh, rows32, *a, **k)
 
         monkeypatch.setattr(rc, "sharded_scan_segments", sparse)
-        monkeypatch.setattr(pm, "byte_scan_plan_into", plan_into)
-        monkeypatch.setattr(
-            rc, "byte_scan_stream",
-            lambda *a, **k: modes["port"].append("_scan") or orig_stream(*a, **k))
+        monkeypatch.setattr(rc, "sharded_scan_all_rows", dense)
+        spy_plans(monkeypatch, plans)
         needles = [b"tok3_11 ", b"blk", b"absent", b"x"]
         seen = []
         for picked in ((3,), (3, 29), (0, 17, 39), (1, 2, 5, 6), (1, 2, 5, 6, 8),
@@ -496,11 +512,15 @@ class TestSparseSegmentScan:
                 matrix = cache.port._bucket.matrix
                 read, rounded = ks.segment_layout([s for s, _ in segs], [n for _, n in segs],
                                                   matrix.shape[0])
-                assert plans == [[[(matrix.data_ptr(), r, n) for r, n in zip(read, rounded)]]]
+                assert plans == [[(0, [(matrix.data_ptr(), r, n)
+                                       for r, n in zip(read, rounded)])]]
                 assert ks.launch_shapes() == {
-                    ("segments", sum(counts), len(needles), len(segs), counts,
-                     ks.scan_word_bucket(max(map(len, needles)))): 1
+                    ("segments", sum(counts), len(needles), len(segs), counts): 1
                 }, picked
+            else:
+                G = cache.port._bucket.matrix.shape[0]
+                assert plans == [[(0, [(cache.port._bucket.matrix.data_ptr(), 0, G)])]]
+                assert ks.launch_shapes() == {("stream", G, len(needles), 0, ()): 1}, picked
         # One to four blocks scan sparse; five and all forty dense.
         assert seen == ["_scan_segments"] * 4 + ["_scan"] * 2
         ks.reset_launch_counts()
@@ -540,15 +560,19 @@ class TestSparseSegmentScan:
         for name, mode in (("sharded_scan_segments", "_scan_segments"),
                            ("sharded_scan_all_rows", "_scan")):
             orig = getattr(rc, name)
-            monkeypatch.setattr(rc, name, lambda *a, _o=orig, _m=mode, **k: (
-                modes["port"].append(_m) or _o(*a, **k)))
+
+            def spy(mesh, *a, _o=orig, _m=mode, **k):
+                assert mesh is port.mesh  # no single-device call on a mesh
+                modes["port"].append(_m)
+                return _o(mesh, *a, **k)
+
+            monkeypatch.setattr(rc, name, spy)
         launched = []
         orig_plan = pm.byte_scan_plan_into
         monkeypatch.setattr(pm, "byte_scan_plan_into", lambda out, plan, *a, **k: (
             launched.extend([(b.data_ptr(), int(s), int(c)) for b, s, c in ranges]
                             for _, ranges in plan)
             or orig_plan(out, plan, *a, **k)))
-        monkeypatch.setattr(rc, "byte_scan_stream", None)  # no single-device launch on a mesh
         needles = [b"tok3_11 ", b"blk", b"absent", b"x"]
         seen, sparse_straddling = [], 0
         first = straddling[0]
@@ -578,6 +602,155 @@ class TestSparseSegmentScan:
         # One to four blocks scan sparse; five and all forty dense.
         assert seen == ["_scan_segments"] * 4 + ["_scan"] * 2
         assert sparse_straddling >= 2
+
+
+# Eleven distinct needles of several lengths: unions of 9-11 take a launch
+# of 8 and one of the rest.
+UNION_NEEDLES = [b"blk%d " % b for b in range(6)] + [b"tok3_7 ", b"absent", b"xxxx",
+                                                     b"tok5_", b"zz"]
+
+
+def small_state(shards: int, needle_cache: bool):
+    """Six small blocks pinned in a JAX single-device cache whose stream is
+    reserved large enough that a one-block request scans sparse, and the
+    port's copy of it (``rowcache_from_reference``): on one CPU device, or
+    on a 4-shard CPU mesh. -> (ref, port, keys)."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    ref = rc_ref.DeviceRowCache(1 << 30, mesh_devices=1)
+    assert ref.reserve(2048) == 2560
+    for b in range(6):
+        data, offs, lens = block_of([{"m": f"blk{b} tok{b}_{i} " + "x" * 40} for i in range(40)])
+        ref.pin((f"f{b}".encode(), 0), data, offs, lens)
+    port = rowcache_from_reference(
+        ref, "cpu", mesh=pm.default_mesh(shards, "cpu") if shards > 1 else None)
+    ref.needle_cache_enabled = port.needle_cache_enabled = needle_cache
+    return ref, port, list(ref._blocks)
+
+
+def scan_both(ref, port, keys, needles) -> None:
+    """The same request to both caches: equal candidate matrices."""
+    want = ref.scan_many([ref._blocks[k] for k in keys], needles)
+    got = port.scan_many([port._blocks[k] for k in keys], needles)
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=repr((needles, key)))
+
+
+class TestRealNeedles:
+    @pytest.mark.parametrize("shards", [1, 4])
+    def test_needle_cache_keeps_its_own_copy_of_each_row(self, monkeypatch, shards):
+        """A dense scan's rows enter the needle cache as copies: each entry
+        owns its bytes and shares no memory with any launch output, so the
+        cache's byte budget (monkeypatched to three rows) bounds what it
+        holds; candidate matrices equal the JAX cache's, from the cache
+        too."""
+        ref, port, keys = small_state(shards, needle_cache=True)
+        per_entry = port._bucket.cap // 32 * 4
+        monkeypatch.setattr(rc, "_NEEDLE_CACHE_MAX_BYTES", per_entry * 3)
+        outs = []
+        orig = rc.sharded_scan_all_rows
+        monkeypatch.setattr(rc, "sharded_scan_all_rows",
+                            lambda *a, **k: outs.append(orig(*a, **k)) or outs[-1])
+        for needles in (UNION_NEEDLES[:3], UNION_NEEDLES[3:8], UNION_NEEDLES[8:],
+                        UNION_NEEDLES[9:]):
+            scan_both(ref, port, keys, needles)
+            cache = port._bucket.needle_cache
+            assert cache and sum(e[1].nbytes for e in cache.values()) <= per_entry * 3
+            for needle, (_, row) in cache.items():
+                assert row.flags.owndata and row.base is None, needle
+                assert not any(np.shares_memory(row, o.numpy()) for o in outs), needle
+        assert len(outs) == 3  # the last request was served from the cache
+
+    @pytest.mark.parametrize("shards", [1, 4])
+    def test_dense_launches_take_only_their_real_needles(self, monkeypatch, shards):
+        """Unions of 1 to 11 needles, over every block (dense) and over one
+        (sparse): each request scans in the JAX cache's mode, in launches
+        of the JAX package's groups (8 needles sorted by length, then the
+        rest, as its Pallas path launches them), each launch's
+        n_real is its part's real needle count (8, then the rest; a spy
+        counts the plan's launches as the card wrapper does) with no
+        padding row, and the candidate matrices equal the JAX cache's."""
+        from bloomsearch_tpu_torch.kernels import scan as ks
+
+        ref, port, keys = small_state(shards, needle_cache=False)
+        modes = {"ref": [], "port": []}
+        for name in ("_scan", "_scan_segments"):
+            orig = getattr(ref, name)
+            setattr(ref, name,
+                    lambda *a, _o=orig, _n=name, **k: modes["ref"].append(_n) or _o(*a, **k))
+        for name, mode in (("sharded_scan_all_rows", "_scan"),
+                           ("sharded_scan_segments", "_scan_segments")):
+            orig = getattr(rc, name)
+
+            def spy(*a, _o=orig, _m=mode, n_real, **k):
+                lens = a[-1]  # (mesh, rows32, [seg_starts,] needles, lens)
+                assert len(lens) == n_real and np.asarray(lens).all()  # no padding row
+                modes["port"].append(_m)
+                return _o(*a, n_real=n_real, **k)
+
+            monkeypatch.setattr(rc, name, spy)
+        spy_plans(monkeypatch, [])
+        G, rows = port._bucket.cap, port._bucket.cap // shards
+        for k in range(1, len(UNION_NEEDLES) + 1):
+            parts = [min(ks.MAX_SCAN_NEEDLES, k - i) for i in range(0, k, ks.MAX_SCAN_NEEDLES)]
+            for picked, mode in ((keys, "_scan"), (keys[2:3], "_scan_segments")):
+                modes["ref"].clear()
+                modes["port"].clear()
+                ks.reset_launch_counts()
+                scan_both(ref, port, picked, UNION_NEEDLES[:k])
+                # The JAX cache's XLA path on the CPU takes up to 64
+                # needles a launch, its Pallas path 8, as the port does.
+                assert modes["port"] == [mode] * len(parts) and modes["ref"] == [mode], (k, mode)
+                n_reals = sorted(key[2] for key, n in ks.launch_shapes().items() for _ in range(n))
+                assert n_reals == sorted(parts), (k, mode)
+                if mode == "_scan":  # a dense record, or one launch over the card's 4 shards
+                    want = (0, ()) if shards == 1 else (shards, (rows,) * shards)
+                    assert {key[3:] for key in ks.launch_shapes()} == {want}
+                    assert ks.launch_counts() == {"stream": len(parts), "segments": 0}
+        ks.reset_launch_counts()
+
+    def test_one_card_dense_scan_is_one_plan_launch_over_the_stream(self, monkeypatch):
+        """On one device a dense request and the warmup's dense launch
+        (``precompile_scan_programs``) are each one launch of the plan
+        entry: one range over the whole stream from word 0, a dense-mode
+        record (``n_ranges`` 0), counted as a "stream" launch of the kernel
+        (a spy counts as the card wrapper does) and never as a mesh call,
+        which a 4-shard mesh's dense call is (``_count`` made to count on
+        the CPU too)."""
+        from bloomsearch_tpu_torch.kernels import scan as ks
+        from bloomsearch_tpu_torch.parallel import mesh as pm
+
+        ref, port, keys = small_state(1, needle_cache=False)
+        plans = []
+        spy_plans(monkeypatch, plans)
+        monkeypatch.setattr(pm, "_count", lambda name, shards: pm._launches.__setitem__(
+            name, pm._launches[name] + 1))
+        pm.reset_launch_counts()
+        ks.reset_launch_counts()
+        matrix = port._bucket.matrix
+        G = matrix.shape[0]
+        scan_both(ref, port, keys, UNION_NEEDLES[:3])
+        assert plans == [[(0, [(matrix.data_ptr(), 0, G)])]]
+        assert ks.launch_shapes() == {("stream", G, 3, 0, ()): 1}
+        records = ks.plan_records([(0, [(matrix, 0, G)])], {matrix.device: 0})
+        assert (records[0].n_ranges, records[0].base[0], records[0].rows_total) == (
+            0, matrix.data_ptr(), G)
+        plans.clear()
+        assert port.precompile_scan_programs([port._blocks[k] for k in keys]) == 2
+        assert plans[0] == [(0, [(matrix.data_ptr(), 0, G)])]
+        assert pm.launch_counts()["sharded_scan_all_rows"] == 0
+        mesh = pm.default_mesh(4, "cpu")
+        stream = pm.sharded_update_rows(mesh, pm.sharded_zeros_rows(mesh, G),
+                                        matrix.numpy(), 0)
+        padded, lens = np.zeros((1, 32), np.int32), np.array([3], np.int32)
+        padded[0, :3] = list(b"blk")
+        np.testing.assert_array_equal(
+            pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=1).numpy(),
+            pm.sharded_scan_all_rows(None, matrix, padded, lens, n_real=1).numpy())
+        assert pm.launch_counts()["sharded_scan_all_rows"] == 1
+        pm.reset_launch_counts()
+        ks.reset_launch_counts()
 
 
 class TestNeedleBitmapCache:

@@ -17,7 +17,10 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from bloomsearch_tpu.bloom.pallas_kernels import byte_scan_pallas_swar  # noqa: E402
+from bloomsearch_tpu.bloom.pallas_kernels import (  # noqa: E402
+    byte_scan_pallas_swar,
+    scan_word_bucket,
+)
 from bloomsearch_tpu.rowcache import _device_scan_fn  # noqa: E402
 from bloomsearch_tpu_torch.kernels import scan as ks  # noqa: E402
 
@@ -48,9 +51,14 @@ def unpack(words, rows: int, G: int) -> np.ndarray:
     return np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")[:rows, :G].astype(bool)
 
 
-def port_dense(chunks, padded, lens, n_real, max_words):
+def port_dense(chunks, padded, lens, n_real):
     rows32 = torch.from_numpy(chunks.view(np.int32).copy())
-    return ks.byte_scan_stream(rows32, padded, lens, n_real=n_real, max_words=max_words).numpy()
+    return ks.byte_scan_stream(rows32, padded, lens, n_real=n_real).numpy()
+
+
+def jax_words(lens, n_real) -> int:
+    """The JAX kernel's word bucket for these needles (the port has none)."""
+    return scan_word_bucket(int(np.asarray(lens)[:n_real].max()))
 
 
 def jax_pallas(chunks, padded, lens, n_real, max_words):
@@ -94,8 +102,8 @@ def test_plain_matches_pallas_xla_and_oracle(lengths):
     needles = [bytes(rng.integers(0x70, 256, size=ln, dtype=np.uint8)) for ln in lengths]
     chunks = planted_stream(len(lengths) + lengths[0], needles)
     padded, lens = pack_needles(needles)
-    max_words = ks.scan_word_bucket(max(lengths))
-    got = port_dense(chunks, padded, lens, len(needles), max_words)
+    max_words = scan_word_bucket(max(lengths))
+    got = port_dense(chunks, padded, lens, len(needles))
     assert got.dtype == np.int32 and got.shape == (len(needles), 512 // 32)
     np.testing.assert_array_equal(got.view(np.uint32), jax_pallas(chunks, padded, lens, len(needles), max_words))
     np.testing.assert_array_equal(got.view(np.uint32), jax_xla(chunks, padded, lens, len(needles), max_words))
@@ -115,8 +123,8 @@ def test_valid_start_boundary():
     chunks[7, STRIDE : STRIDE + len(nd)] = arr
     chunks[11, : len(nd)] = arr
     padded, lens = pack_needles([nd])
-    max_words = ks.scan_word_bucket(len(nd))
-    got = port_dense(chunks, padded, lens, 1, max_words)
+    max_words = scan_word_bucket(len(nd))
+    got = port_dense(chunks, padded, lens, 1)
     np.testing.assert_array_equal(got.view(np.uint32), jax_pallas(chunks, padded, lens, 1, max_words))
     expect = np.zeros(512, dtype=bool)
     expect[3] = expect[11] = True
@@ -129,11 +137,11 @@ def test_padding_rows_match_every_chunk_and_leave_real_rows_alone():
     needles = [b"ab", b"\xff\xfe\x80"]
     chunks = planted_stream(5, needles)
     padded, lens = pack_needles(needles)
-    full = port_dense(chunks, padded, lens, 8, 2)
+    full = port_dense(chunks, padded, lens, 8)
     np.testing.assert_array_equal(full.view(np.uint32), jax_pallas(chunks, padded, lens, 8, 2))
     np.testing.assert_array_equal(full.view(np.uint32), jax_xla(chunks, padded, lens, 8, 2))
     assert (full[2:] == -1).all()  # every bit set
-    np.testing.assert_array_equal(full[:2], port_dense(chunks, padded[:2], lens[:2], 2, 2))
+    np.testing.assert_array_equal(full[:2], port_dense(chunks, padded[:2], lens[:2], 2))
 
 
 @pytest.mark.parametrize("n_segs", [1, 2, 4])
@@ -147,7 +155,7 @@ def test_segments_match_jax_scan_segments(n_segs):
     padded, lens = pack_needles(needles)
     rows32 = torch.from_numpy(chunks.view(np.int32).copy())
     got = ks.byte_scan_segments(
-        rows32, starts.tolist(), padded, lens, n_real=8, max_words=4, seg_chunks=seg_chunks
+        rows32, starts.tolist(), padded, lens, n_real=8, seg_chunks=seg_chunks
     ).numpy()
     assert got.shape == (8, n_segs * seg_chunks // 32)
     for use_pallas in (False, True):
@@ -171,7 +179,6 @@ def test_segments_match_jax_scan_segments(n_segs):
         dict(rows=(48, 128)),  # not a multiple of 32 rows
         dict(n_real=9),  # more than 8 needles
         dict(length=33),  # longer than the window
-        dict(length=20, max_words=2),  # longer than its word bucket
     ],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
@@ -181,14 +188,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     lens = np.zeros(max(n_real, 1), np.int32)
     lens[0] = bad.get("length", 3)
     with pytest.raises(ValueError):
-        ks.byte_scan_stream(rows, padded, lens, n_real=n_real, max_words=bad.get("max_words", 9))
+        ks.byte_scan_stream(rows, padded, lens, n_real=n_real)
+
+
+@pytest.mark.parametrize("length", range(1, ks.MAX_SCAN_WINDOW + 1))
+def test_every_needle_length_needs_no_word_bucket(length):
+    """The wrappers take no word bucket: a needle of every length from 1 to
+    32 bytes, alone in its launch, gives the words of the JAX package's
+    ``scan_all`` (called with its own bucket for that length) and of the
+    bytes oracle, planted at every start alignment and at 479 / 480."""
+    rng = np.random.default_rng(100 + length)
+    nd = bytes(rng.integers(0x70, 256, size=length, dtype=np.uint8))
+    chunks = planted_stream(200 + length, [nd], G=128)
+    padded, lens = pack_needles([nd], n_rows=1)
+    got = port_dense(chunks, padded, lens, 1)
+    np.testing.assert_array_equal(got.view(np.uint32), jax_xla(chunks, padded, lens, 1,
+                                                               jax_words(lens, 1)))
+    np.testing.assert_array_equal(unpack(got, 1, 128)[0], oracle(chunks, nd))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ks.reset_launch_counts()
     chunks = planted_stream(1, [b"abc"], G=64)
     padded, lens = pack_needles([b"abc"])
-    port_dense(chunks, padded, lens, 1, 2)
+    port_dense(chunks, padded, lens, 1)
     assert ks.launch_counts() == {"stream": 0, "segments": 0}
     assert ks.launch_shapes() == {}
 
@@ -205,21 +228,21 @@ def test_cuda_kernel_matches_plain_version():
         padded, lens = pack_needles(needles)
         rows32 = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
         for n_real in (1, 2, 4, 8):
-            got = ks.byte_scan_stream(rows32, padded, lens, n_real=n_real, max_words=9)
+            got = ks.byte_scan_stream(rows32, padded, lens, n_real=n_real)
             want = ks.byte_scan_plain(rows32, padded, lens, n_real)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (lengths, n_real)
         for n_segs in (1, 2, 4):
             starts = [2048 - 512, 1900, 0, 700][:n_segs]
             got = ks.byte_scan_segments(
-                rows32, starts, padded, lens, n_real=8, max_words=9, seg_chunks=512)
+                rows32, starts, padded, lens, n_real=8, seg_chunks=512)
             want = ks.byte_scan_plain(rows32, padded, lens, 8, starts, 512)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (lengths, n_segs)
         for case, ranges in RANGE_CASES.items():
             starts, counts = [s for s, _ in ranges], [n for _, n in ranges]
             got = ks.byte_scan_segments(
-                rows32, starts, padded, lens, n_real=3, max_words=9, seg_chunks=counts)
+                rows32, starts, padded, lens, n_real=3, seg_chunks=counts)
             want = ks.byte_scan_plain(rows32, padded, lens, 3, starts, counts)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (lengths, case)
@@ -228,7 +251,7 @@ def test_cuda_kernel_matches_plain_version():
 def jax_scan_all_bits(chunks, padded, lens, n_real) -> np.ndarray:
     """bool[n_real, G]: the JAX package's ``scan_all`` (XLA path) over the
     whole stream."""
-    words = jax_xla(chunks, padded, lens, n_real, ks.scan_word_bucket(int(lens.max())))
+    words = jax_xla(chunks, padded, lens, n_real, jax_words(lens, n_real))
     return unpack(words, n_real, chunks.shape[0])
 
 
@@ -260,7 +283,7 @@ def test_unequal_ranges_match_jax_scan_all_cut_at_the_ranges(case):
     assert rounded == [-(-n // 32) * 32 for n in counts]
     assert all(0 <= r <= s and r + n <= G for r, s, n in zip(read, starts, rounded))
     got = ks.byte_scan_segments(rows32, starts, padded, lens, n_real=n_real,
-                                max_words=ks.scan_word_bucket(32), seg_chunks=counts).numpy()
+                                seg_chunks=counts).numpy()
     assert got.shape == (n_real, sum(rounded) // 32)
     bits = unpack(got, n_real, sum(rounded))
     full = jax_scan_all_bits(chunks, padded, lens, n_real)
@@ -293,7 +316,7 @@ def test_repeated_byte_stream_worst_case(length, odd):
         chunks[g, s : s + length] = np.frombuffer(near, np.uint8)
     needles = [near, b"a" * length]
     padded, lens = pack_needles(needles, n_rows=2)
-    got = port_dense(chunks, padded, lens, 2, ks.scan_word_bucket(length))
+    got = port_dense(chunks, padded, lens, 2)
     bits = unpack(got, 2, G)
     np.testing.assert_array_equal(bits, jax_scan_all_bits(chunks, padded, lens, 2))
     assert bits[0].nonzero()[0].tolist() == [3, 40, 77]
@@ -315,8 +338,7 @@ def test_segment_layout_rejects_what_the_kernel_does_not_take(starts, counts):
     rows = torch.zeros((64, 128), dtype=torch.int32)
     padded, lens = pack_needles([b"abc"], n_rows=1)
     with pytest.raises(ValueError):
-        ks.byte_scan_segments(rows, starts, padded, lens, n_real=1, max_words=2,
-                              seg_chunks=counts)
+        ks.byte_scan_segments(rows, starts, padded, lens, n_real=1, seg_chunks=counts)
 
 
 # csrc/scan.cu's PlanLaunch, field by field: (name, offset, size).
@@ -351,7 +373,7 @@ def test_plan_on_cpu_bases_fills_each_launch_slice():
     plan = [(1, [(bases[1], 32, 64), (bases[0], 0, 32)]), (6, [(bases[2], 96, 32)])]
     out = torch.full((2, 9), 0x5A5A5A5A, dtype=torch.int32)
     ks.reset_launch_counts()
-    ks.byte_scan_plan_into(out, plan, padded, lens, n_real=2, max_words=2)
+    ks.byte_scan_plan_into(out, plan, padded, lens, n_real=2)
     assert ks.launch_counts() == {"stream": 0, "segments": 0}
     logical = np.concatenate([chunks[128 + 32 : 128 + 96], chunks[0:32], chunks[352:384]])
     want = jax_scan_all_bits(logical, padded, lens, 2)
@@ -378,4 +400,4 @@ def test_plan_refuses_what_the_kernel_does_not_take(bad):
     }[bad]
     out = torch.zeros((2 if bad == "wrong rows" else 1, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        ks.byte_scan_plan_into(out, plan, padded, lens, n_real=1, max_words=2)
+        ks.byte_scan_plan_into(out, plan, padded, lens, n_real=1)

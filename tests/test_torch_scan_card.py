@@ -2,7 +2,8 @@
 plain version and a numpy bytes oracle. No JAX: this file runs where the
 JAX package cannot.
 
-Dense mode, segment mode, ``byte_scan_ranges_into`` (ranges of one card's
+Dense mode, the one-card dense call through the plan entry at every
+needle count, segment mode, ``byte_scan_ranges_into`` (ranges of one card's
 shards into a wider output), the sparse sharded scan
 ``sharded_scan_segments`` (K3-e) on 4 and 10 shards of one card and on one
 shard a card where two or more cards are visible, and the one foreign call
@@ -72,22 +73,23 @@ def planted(G: int, shard_rows: int, seed: int) -> np.ndarray:
     return chunks
 
 
-def packed(n_real: int, n_rows: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+def packed(n_real: int, n_rows: int | None = None,
+           needles: list = NEEDLES) -> tuple[np.ndarray, np.ndarray]:
     """The first ``n_real`` needles as (int32[rows, 32], int32[rows]),
     padded with length-0 rows to ``n_rows``."""
     n_rows = n_rows or n_real
     padded = np.zeros((n_rows, ks.MAX_SCAN_WINDOW), np.int32)
     lens = np.zeros(n_rows, np.int32)
-    for r, nd in enumerate(NEEDLES[:n_real]):
+    for r, nd in enumerate(needles[:n_real]):
         padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
         lens[r] = len(nd)
     return padded, lens
 
 
-def oracle(chunks: np.ndarray, n_real: int) -> np.ndarray:
+def oracle(chunks: np.ndarray, n_real: int, needles: list = NEEDLES) -> np.ndarray:
     """bool[n_real, G]: needle n at some start < 480 of chunk g."""
     return np.array([[bytes(c[: 479 + len(nd)]).find(nd) >= 0 for c in chunks]
-                     for nd in NEEDLES[:n_real]])
+                     for nd in needles[:n_real]])
 
 
 def bits(words: torch.Tensor) -> np.ndarray:
@@ -103,13 +105,91 @@ def test_dense_mode_matches_plain_and_oracle(dev):
     ks.reset_launch_counts()
     for n_real in (1, 2, len(NEEDLES)):
         padded, lens = packed(n_real, 8)
-        got = ks.byte_scan_stream(rows32, padded, lens, n_real=8, max_words=9)
+        got = ks.byte_scan_stream(rows32, padded, lens, n_real=8)
         plain = ks.byte_scan_plain(rows32, padded, lens, 8)
         torch.cuda.synchronize()
         assert torch.equal(got, plain), n_real
         np.testing.assert_array_equal(bits(got)[:n_real], want[:n_real])
         assert bits(got)[n_real:].all()  # length-0 rows match every chunk
     assert ks.launch_counts() == {"stream": 3, "segments": 0}
+
+
+EIGHT_NEEDLES = NEEDLES + [b"\x00\x01", b"tile", b"ring-end!"]
+
+
+# 64 tiles, and 1,323: more tiles than the card's persistent blocks (two an
+# SM), not a multiple of them or of the 4-tile ring, so blocks walk 5 or 6
+# tiles and stop part-way round the ring.
+@pytest.mark.parametrize("G", [2048, 32 * 1323])
+def test_one_card_dense_plan_call_matches_the_dense_launch(dev, G):
+    """The one-card row cache's dense call (``sharded_scan_all_rows`` with
+    no mesh: one ``bs_scan_plan`` launch over the whole stream, a
+    dense-mode record, into page-locked memory) gives dense mode's words
+    (``byte_scan_stream``), the plain version's and the oracle's at every
+    n_real from 1 to 8; it counts one dense "stream" launch and no mesh
+    call."""
+    chunks = planted(G, 512, 7)
+    rows32 = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
+    for n_real in range(1, ks.MAX_SCAN_NEEDLES + 1):
+        padded, lens = packed(n_real, needles=EIGHT_NEEDLES)
+        ks.reset_launch_counts()
+        pm.reset_launch_counts()
+        got = pm.sharded_scan_all_rows(None, rows32, padded, lens, n_real=n_real)
+        assert got.device.type == "cpu" and got.is_pinned()
+        assert ks.launch_shapes() == {("stream", G, n_real, 0, ()): 1}  # a dense record
+        assert pm.launch_counts()["sharded_scan_all_rows"] == 0
+        dense = ks.byte_scan_stream(rows32, padded, lens, n_real=n_real)
+        plain = ks.byte_scan_plain(rows32, padded, lens, n_real)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dense.cpu()) and torch.equal(dense, plain), n_real
+        assert (bits(got)[:, :G] == oracle(chunks, n_real, EIGHT_NEEDLES)).all(), n_real
+    ks.reset_launch_counts()
+
+
+def test_a_dense_record_writes_its_whole_base_at_its_first_word(dev):
+    """A plan launch of one range over a whole base is a dense-mode record
+    (``n_ranges`` 0): in one plan with a two-range launch after it, its
+    words land from its first word as dense mode's and the plain
+    version's do, and the words outside both launches keep their value."""
+    chunks = planted(1024, 512, 11)
+    rows32 = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
+    a, b = rows32[:512].clone(), rows32[512:].clone()
+    padded, lens = packed(5)
+    plan = [(3, [(a, 0, 512)]), (3 + 16, [(b, 256, 256), (b, 0, 256)])]
+    records = ks.plan_records(plan, {dev: 0})
+    assert [r.n_ranges for r in records] == [0, 2]
+    out = torch.full((5, 3 + 32 + 2), 0x5A5A5A5A, dtype=torch.int32, pin_memory=True)
+    ks.reset_launch_counts()
+    ks.byte_scan_plan_into(out, plan, padded, lens, n_real=5, count_as="stream")
+    assert ks.launch_shapes() == {("stream", 512, 5, 0, ()): 1,
+                                  ("stream", 512, 5, 2, (256, 256)): 1}
+    swapped = torch.cat([b[256:], b[:256]])
+    want = torch.cat([ks.byte_scan_stream(a, padded, lens, n_real=5),
+                      ks.byte_scan_plain(swapped, padded, lens, 5)], dim=1).cpu()
+    assert torch.equal(out[:, 3:35], want)
+    assert (out[:, :3] == 0x5A5A5A5A).all() and (out[:, 35:] == 0x5A5A5A5A).all()
+    ks.reset_launch_counts()
+
+
+@pytest.mark.parametrize("bad", ["null base", "rows off the tile", "no rows"])
+def test_a_dense_record_refuses_what_the_kernel_does_not_take(dev, bad):
+    """A dense-mode record with a null base, or rows that are not a
+    positive multiple of 32, is refused before anything launches
+    (cudaErrorInvalidValue, 1): the output keeps its words."""
+    rows32 = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    padded, lens = packed(1)
+    needle_bytes, real_lens = ks._check(rows32, padded, lens, 1)
+    records = ks.plan_records([(0, [(rows32, 0, 64)])], {dev: 0})
+    assert records[0].n_ranges == 0
+    if bad == "null base":
+        records[0].base[0] = None
+    else:
+        records[0].rows_total = 48 if bad == "rows off the tile" else 0
+    out = torch.full((1, 2), 7, dtype=torch.int32, pin_memory=True)
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        ks.plan_call(needle_bytes, real_lens, records, out)
+    torch.cuda.synchronize()
+    assert (out == 7).all()
 
 
 def test_segment_mode_matches_plain_and_oracle(dev):
@@ -124,7 +204,7 @@ def test_segment_mode_matches_plain_and_oracle(dev):
     for starts, counts in (([5, 700, 1203, 2030], [45, 100, 33, 18]),
                            ([0, 2048 - 96], [1, 96]), ([321], [31])):
         ks.reset_launch_counts()
-        got = ks.byte_scan_segments(rows32, starts, padded, lens, n_real=n_real, max_words=9,
+        got = ks.byte_scan_segments(rows32, starts, padded, lens, n_real=n_real,
                                     seg_chunks=counts)
         plain = ks.byte_scan_plain(rows32, padded, lens, n_real, starts, counts)
         torch.cuda.synchronize()
@@ -152,7 +232,7 @@ def test_ranges_into_a_wide_output_keep_other_words(dev, host):
     out = torch.full((3, 20), 0x5A5A5A5A, dtype=torch.int32)
     out = out.pin_memory() if host else out.to(dev)
     ks.reset_launch_counts()
-    ks.byte_scan_ranges_into(out, 3, bases, starts, counts, padded, lens, n_real=3, max_words=9)
+    ks.byte_scan_ranges_into(out, 3, bases, starts, counts, padded, lens, n_real=3)
     torch.cuda.synchronize()
     assert ks.launch_counts() == {"stream": 0, "segments": 1}
     out = out.cpu()
@@ -174,7 +254,7 @@ def test_pageable_output_is_refused(dev):
     ks.reset_launch_counts()
     with pytest.raises(RuntimeError, match="cudaError"):
         ks.byte_scan_ranges_into(torch.zeros((1, 2), dtype=torch.int32), 0, [stream], [0], [64],
-                                 padded, lens, n_real=1, max_words=9)
+                                 padded, lens, n_real=1)
     assert ks.launch_counts() == {"stream": 0, "segments": 0}
 
 
@@ -211,7 +291,7 @@ def test_sharded_segments_match_the_unsharded_launch(dev, kind):
     ks.reset_launch_counts()
     pm.reset_launch_counts()
     got, base = pm.sharded_scan_segments(mesh, stream, starts, padded, lens, n_real=n_real,
-                                         max_words=9, seg_chunks=counts)
+                                         seg_chunks=counts)
     assert ks.launch_counts() == {"stream": 0, "segments": sum(len(ls) for _, ls in plan)}
     assert pm.launch_counts()["sharded_scan_segments"] == 1
     for device, launches in plan:
@@ -222,7 +302,7 @@ def test_sharded_segments_match_the_unsharded_launch(dev, kind):
     assert base == want_base and got.is_pinned()
     assert got.shape == (n_real, sum(n for _, _, n in pieces) // 32)
     flat = torch.from_numpy(chunks.view(np.int32).copy()).to(dev)
-    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=n_real, max_words=9,
+    single = ks.byte_scan_segments(flat, starts, padded, lens, n_real=n_real,
                                    seg_chunks=counts)
     read, rounded = ks.segment_layout(starts, counts, G)
     single_base = np.cumsum([0] + rounded[:-1]) + np.array(starts) - np.array(read)
@@ -263,7 +343,7 @@ def test_a_fresh_thread_launches_the_sparse_sharded_scan(dev, kind):
 
     def run():
         return pm.sharded_scan_segments(mesh, stream, starts, padded, lens, n_real=3,
-                                        max_words=9, seg_chunks=counts)
+                                        seg_chunks=counts)
 
     want = run()
     got: list = []
@@ -318,7 +398,7 @@ def test_plan_matches_the_unsharded_kernels_at_the_main_path_shapes(dev, kind):
     layout = pm.card_layout(stream, 0, ks.MAX_SEGMENTS)
     for n_real in (1, 8):
         padded, lens = packed_of(EIGHT[:n_real])
-        kw = dict(n_real=n_real, max_words=9)
+        kw = dict(n_real=n_real)
         ks.reset_launch_counts()
         dense = pm.sharded_scan_all_rows(mesh, stream, padded, lens, **kw)
         assert ks.launch_counts() == {"stream": sum(len(c.launches) for c in layout),
@@ -359,7 +439,7 @@ def test_two_threads_call_the_plan_at_once(dev):
     def run(case):
         starts, counts, (padded, lens) = case
         return pm.sharded_scan_segments(mesh, stream, starts, padded, lens,
-                                        n_real=len(lens), max_words=9, seg_chunks=counts)
+                                        n_real=len(lens), seg_chunks=counts)
 
     want = [run(c) for c in cases]
     barrier = threading.Barrier(2)
@@ -397,9 +477,9 @@ def test_the_callers_current_device_is_unchanged(dev):
             torch.cuda.set_device(current)
             for mesh, stream in zip(meshes, streams):
                 pm.sharded_scan_segments(mesh, stream, [4000], padded, lens, n_real=3,
-                                         max_words=9, seg_chunks=[200])
+                                         seg_chunks=[200])
                 assert torch.cuda.current_device() == current
-                pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=3, max_words=9)
+                pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=3)
                 assert torch.cuda.current_device() == current
     finally:
         torch.cuda.set_device(dev)
@@ -413,8 +493,7 @@ def test_pageable_output_is_refused_by_the_plan(dev):
     out = torch.full((1, 2), 7, dtype=torch.int32)
     ks.reset_launch_counts()
     with pytest.raises(RuntimeError, match="cudaError"):
-        ks.byte_scan_plan_into(out, [(0, [(stream, 0, 64)])], padded, lens, n_real=1,
-                               max_words=9)
+        ks.byte_scan_plan_into(out, [(0, [(stream, 0, 64)])], padded, lens, n_real=1)
     torch.cuda.synchronize()
     assert (out == 7).all() and ks.launch_counts() == {"stream": 0, "segments": 0}
 
@@ -423,13 +502,13 @@ def test_a_failure_part_way_waits_for_the_cards_that_launched(dev):
     """A plan whose second launch names a card index the record takes but
     no machine has: the call raises that error only once the first launch
     (8 needles over a refscale stream, over a millisecond of device time)
-    has finished, so its words are all there when the call returns, and
-    the caller's current device is kept."""
+    has finished, so its words are all there when the call returns, the
+    caller's current device is kept, and the next call runs."""
     mesh = mesh_of("4 shards on one card", dev)
     stream = random_stream(mesh.devices, REFSCALE_SHARD, 4)
     padded, lens = packed_of(EIGHT)
-    want = pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=8, max_words=9)
-    needle_bytes, real_lens = ks._check(stream[0], padded, lens, 8, 9)
+    want = pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=8)
+    needle_bytes, real_lens = ks._check(stream[0], padded, lens, 8)
     out = torch.full(tuple(want.shape), 0x5A5A5A5A, dtype=torch.int32).pin_memory()
     plan = [(0, [(s, 0, REFSCALE_SHARD) for s in stream]), (0, [(stream[0], 0, 32)])]
     records = ks.plan_records(plan, {dev: torch.cuda.current_stream(dev).cuda_stream})
@@ -440,6 +519,9 @@ def test_a_failure_part_way_waits_for_the_cards_that_launched(dev):
         ks.plan_call(needle_bytes, real_lens, records, out)
     assert torch.equal(out, want)
     assert torch.cuda.current_device() == dev.index
+    # The error is not left as the thread's last error, which the next
+    # launch's check would report: the next plan call runs.
+    assert torch.equal(pm.sharded_scan_all_rows(mesh, stream, padded, lens, n_real=8), want)
 
 
 def test_a_record_size_mismatch_is_refused_at_bind(dev, monkeypatch):

@@ -263,7 +263,7 @@ def test_mesh_join_cases_agree_on_a_cpu_mesh(label):
         assert [i for i, _, _ in pieces] == [0, 1, 1, 3]  # across boundary 1, inside 1, at the end
         got = exp_mesh_join.check_sparse(case)
         want = [exp_mesh_join.requested_bits(
-            ks.byte_scan_stream(full, case.needles, case.lens, n_real=3, max_words=9),
+            ks.byte_scan_stream(full, case.needles, case.lens, n_real=3),
             case.starts, case.counts)[r] for r in range(3)]
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
         assert all(b[0].any() and not b[2].all() for b in got)
