@@ -118,7 +118,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    exactly one launch a card; with two or more cards also
    ``graft_entry.dryrun_multichip``; (c) ``graft_entry.entry()`` against
    the plain version;
-9. tools: (a) the probe's access-pattern floor kernel (K1f,
+9. beyond budget: the refscale dataset served with ``bank_cache_bytes``
+   and ``row_cache_bytes`` below its banks and its stream (768 MiB and 640
+   MiB at refscale, ``beyond_budgets``: one 128-column superbank unit and
+   a group fit, its doubling does not; ~36% of the stream), needle cache
+   off: ``warmup()``, every phase-5/7 query shape, the JAX bench's churn
+   sweep of 80 uid lookups, the 16-thread burst alone and beside a churn
+   sweep, every row set against the host-probe engine's. Bank evictions
+   and compactions, row-cache evictions and compactions, sparse cold
+   probes, completed background bank warms and pins (``BudgetCounters``,
+   the row cache's stats) must each be above 0, degrades to host probing
+   (``BankChurnError``) no more than the device probe calls, the probe
+   and scan counters (set to 0 just before) must show K1e and K2/K2s
+   launches, every probe and scan launch shape is re-run against its plain
+   version (phases 6 and 7's helpers), and the peak device memory must
+   stay within the bound ``memory_bound`` derives from the code; then the
+   one-card combined probe at a 24.8 GB bank (C = 4,608; reduce-AND at T =
+   1 and the widest clause output, T = 16 with 16 members) in turns, plan
+   against launch and copy (``wide_bank_turns``);
+10. tools: (a) the probe's access-pattern floor kernel (K1f,
    ``probe_floor``) against its plain version, bit-identical, at the bench
    shape (13,480 rows, C = 32,768, T = 4) and at the refscale bank's C =
    256, then ``tools/exp_kernel_floor.measure``: the stream floor (single
@@ -134,8 +152,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (d) ``cli`` load, search (token, field:token with a regex, ``--limit``)
    and merge on the card, the rows equal to the host probe's.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record, with phase 9's
+numbers under ``beyond_budget``; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -201,11 +220,16 @@ def log(msg: str) -> None:
 # -- phase 1 and 2 ------------------------------------------------------------
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+
+
+def phase_device() -> str:
+    smi = card_line()
     log(smi)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
@@ -2317,7 +2341,418 @@ class SparseCallRecorder:
         self.pm.byte_scan_plan_into = self.orig_launch
 
 
-# -- phase 9: the tools ---------------------------------------------------------
+# -- phase 9: beyond budget -------------------------------------------------------
+
+# The budgets at refscale (240 block columns of 5,391,600 bytes, a packed
+# stream of 3,598,848 chunks); other dataset sizes scale them by their own
+# bytes (``beyond_budgets``). 768 MiB holds one 128-column superbank
+# capacity unit (690 MB) and a group's headroom but not the next doubling
+# (1.38 GB); 640 MiB is ~36% of the 1.84 GB stream, the JAX bench's
+# xlscale residency.
+BEYOND_BANK_BYTES = 768 << 20
+BEYOND_ROW_BYTES = 640 << 20
+REFSCALE_COLUMN_BYTES = 5_391_600
+REFSCALE_STREAM_BYTES = 3_598_848 * 512
+CHURN_LOOKUPS = 80  # the JAX bench's xlscale churn sweep
+WIDE_BANK_COLS = 4_608  # 24.8 GB at refscale's rows: xxlscale's banks fully resident
+
+
+class BudgetCounters:
+    """What serving beyond both budgets does, counted by wrapping (the
+    engine has no option for it): ``Superbank.remove`` (nothing is
+    tombstoned in the phase, so every removal is an eviction: segments and
+    their columns), ``Superbank.maybe_compact`` (a compaction when it
+    clears the dead columns), the engine's sparse cold probes
+    (``bloom.probe.probe_rows_sparse``, which it imports at call time), and
+    on the engine's backend (``attach``) ``_ensure_resident`` called with a
+    yield gate once ``after_warmup`` is set (a background bank warm:
+    completed, and those that inserted a group) and ``probe_groups`` (a
+    query that reached the device probe, or a ``BankChurnError``, which the
+    engine degrades to host probing)."""
+
+    KEYS = ("bank_segment_evictions", "bank_column_evictions", "superbank_compactions",
+            "sparse_cold_probes", "bank_warms_completed", "bank_warm_inserts",
+            "device_probe_calls", "bank_churn_errors")
+
+    def __init__(self):
+        from bloomsearch_tpu_torch.bloom import bank, probe
+
+        self.bank, self.probe = bank, probe
+        self.counts = dict.fromkeys(self.KEYS, 0)
+        self.lock = threading.Lock()
+        self.after_warmup = False
+
+    def add(self, key: str, n: int = 1) -> None:
+        with self.lock:
+            self.counts[key] += n
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return dict(self.counts)
+
+    def __enter__(self):
+        bank, probe = self.bank, self.probe
+        self.orig = (bank.Superbank.remove, bank.Superbank.maybe_compact,
+                     probe.probe_rows_sparse)
+        remove, compact, sparse = self.orig
+        counters = self
+
+        def counted_remove(sb, key):
+            seg = sb.segments.get(key)
+            if seg is not None:
+                counters.add("bank_segment_evictions")
+                counters.add("bank_column_evictions", seg[1])
+            return remove(sb, key)
+
+        def counted_compact(sb, force=False):
+            dead = sb.dead
+            compact(sb, force)
+            if dead and not sb.dead:
+                counters.add("superbank_compactions")
+
+        def counted_sparse(*args, **kwargs):
+            counters.add("sparse_cold_probes")
+            return sparse(*args, **kwargs)
+
+        bank.Superbank.remove, bank.Superbank.maybe_compact = counted_remove, counted_compact
+        probe.probe_rows_sparse = counted_sparse
+        return self
+
+    def __exit__(self, *exc):
+        bank, probe = self.bank, self.probe
+        bank.Superbank.remove, bank.Superbank.maybe_compact, probe.probe_rows_sparse = self.orig
+
+    def attach(self, backend) -> None:
+        ensure, probe_groups = backend._ensure_resident, backend.probe_groups
+        counters = self
+
+        def counted_ensure(pointer, mk, seg_key, loader, yield_to=None):
+            before = backend.is_resident(mk, seg_key)
+            sb = ensure(pointer, mk, seg_key, loader, yield_to=yield_to)
+            if counters.after_warmup and yield_to is not None:
+                counters.add("bank_warms_completed")
+                if not before:
+                    counters.add("bank_warm_inserts")
+            return sb
+
+        def counted_probe(*args, **kwargs):
+            from bloomsearch_tpu_torch.bloom.bank import BankChurnError
+
+            try:
+                out = probe_groups(*args, **kwargs)
+            except BankChurnError:
+                counters.add("bank_churn_errors")
+                raise
+            counters.add("device_probe_calls")
+            return out
+
+        backend._ensure_resident, backend.probe_groups = counted_ensure, counted_probe
+
+
+def beyond_budgets(files) -> dict:
+    """The phase's budgets from the dataset's own bytes: 768 MiB and 640
+    MiB at refscale, scaled by its column bytes and packed stream bytes
+    otherwise; checked to be below the data and at least one capacity
+    unit."""
+    from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES, STREAM_STRIDE
+
+    groups = [g for mf in files for g in mf.metadata.bank_groups]
+    column = 3 * ((groups[0].m_bits + 31) // 32) * 4
+    columns = sum(g.num_blocks for g in groups)
+    stream = sum(-(-max(b.uncompressed_size, 1) // STREAM_STRIDE)
+                 for mf in files for b in mf.metadata.data_blocks) * CHUNK_BYTES
+    bank = round(BEYOND_BANK_BYTES * column / REFSCALE_COLUMN_BYTES)
+    row = round(BEYOND_ROW_BYTES * stream / REFSCALE_STREAM_BYTES)
+    group = max(g.num_blocks for g in groups) * column
+    if not 128 * column + group <= bank < min(256, columns) * column:
+        raise AssertionError(f"bank budget {bank} does not hold one 128-column unit and a "
+                             f"group ({128 * column} + {group}) below its doubling and the data")
+    if not row < stream:
+        raise AssertionError(f"row budget {row} is not below the {stream}-byte stream")
+    out = {"bank_cache_bytes": bank, "row_cache_bytes": row, "column_bytes": column,
+           "columns": columns, "bank_bytes": columns * column, "stream_bytes": stream,
+           "group_bytes": group}
+    log(f"beyond budget: bank_cache_bytes {bank} ({bank / (columns * column):.3f} of "
+        f"{columns} columns x {column} bytes; a 128-column unit {128 * column}, its doubling "
+        f"{256 * column}); row_cache_bytes {row} ({row / stream:.3f} of the {stream}-byte "
+        f"stream)")
+    return out
+
+
+def memory_bound(budgets: dict, reserved_chunks: int, max_block_chunks: int,
+                 baseline: int) -> dict:
+    """The most device memory the phase may allocate, from the code:
+
+    - superbank (``bloom/bank.py``): the budget holds one 128-column unit,
+      and an insert past it grows the bank to 256 columns (a new tensor
+      beside the old, ``Superbank._grow``), evicts and compacts it back to
+      128 (a new tensor beside the 256, ``maybe_compact``), all under the
+      backend lock; a probe snapshot may still hold the bank from before
+      the growth. So at most 128 + 256 + 128 columns at once, and one
+      staged group (``Superbank.stage``, a warm at a time);
+    - stream (``rowcache.py``): the reservation fixes the matrix
+      (``reserve``, ``reserved_chunks``); a compaction gathers into a new
+      matrix beside it with an int64 index of its chunks
+      (``_maybe_compact``), and a scan snapshot may still hold the one
+      before, so three matrices at once; one upload piece (a pow2 of at
+      most a block's chunks, ``pin``);
+    - what was allocated before the phase (``baseline``)."""
+    from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES
+
+    column = budgets["column_bytes"]
+    piece = 1 << max(max_block_chunks, 512).bit_length()
+    terms = {
+        "superbank": (128 + 256 + 128) * column,
+        "staged_group": budgets["group_bytes"],
+        "stream": 3 * reserved_chunks * CHUNK_BYTES,
+        "compaction_index": 8 * reserved_chunks,
+        "upload_piece": piece * CHUNK_BYTES,
+        "baseline": baseline,
+    }
+    terms["bound"] = sum(terms.values())
+    return terms
+
+
+def churn_sweep(engine, rows_total: int) -> list[tuple]:
+    """The JAX bench's churn sweep: ``CHURN_LOOKUPS`` uid point lookups
+    spread across the dataset -> [(uid token, ms, rows)]."""
+    import bloomsearch_tpu_torch as bt
+
+    out = []
+    n = CHURN_LOOKUPS
+    for i in range(n):
+        token = f"u{int((rows_total - 10) * (i / n)):08x}"
+        ms, rows = timed(engine, bt.new_query().token(token).build())
+        out.append((token, ms, rows))
+    return out
+
+
+def check_churn(host, sweep: list[tuple], label: str) -> dict:
+    """Each lookup's rows against the host-probe engine's (one row each)
+    -> its p50 and p95 (ms)."""
+    import bloomsearch_tpu_torch as bt
+
+    for token, _, rows in sweep:
+        want = rowset(host.query_sync(bt.new_query().token(token).build(), timeout=600))
+        if rowset(rows) != want or len(rows) != 1:
+            raise AssertionError(f"{label} {token}: {len(rows)} rows, differ from the host "
+                                 "probe's")
+    walls = sorted(ms for _, ms, _ in sweep)
+    return {"p50_ms": statistics.median(walls),
+            "p95_ms": walls[min(len(walls) - 1, int(0.95 * len(walls)))], "n": len(walls)}
+
+
+def phase_beyond_budget(dev, target_mb: int, seed: int, reps: int = 7) -> dict:
+    """Serving beyond both budgets on one card: banks and row stream above
+    ``bank_cache_bytes`` and ``row_cache_bytes``, so every query mixes
+    device-probed resident groups with sparse cold probes, background bank
+    warms evict from and compact the superbank, and background pins evict
+    in place from and compact the stream. Every query's rows equal the
+    host-probe engine's; the churn counters, the device launches, every
+    launch shape against its plain version and the peak device memory
+    against its bound are checked."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+
+    store = bt.FileSystemDataStore(refscale_dataset(target_mb, seed))
+    files = store.get_maybe_files_for_query(None)
+    blocks = [b for mf in files for b in mf.metadata.data_blocks]
+    rows_total = sum(b.rows for b in blocks)
+    log(f"beyond budget on {card_line()}")
+    budgets = beyond_budgets(files)
+    serving = dict(device=str(dev), probe_backend="device", mesh_devices=1,
+                   bank_cache_bytes=budgets["bank_cache_bytes"],
+                   row_cache_bytes=budgets["row_cache_bytes"])
+    out: dict = {"budgets": budgets}
+    host = bt.BloomSearchEngine(engine_config(probe_backend="host"), store, store)
+    host.start()
+    engine = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    baseline = torch.cuda.memory_allocated(dev)
+    t_phase = time.perf_counter()
+    try:
+        pk.reset_launch_counts()
+        ks.reset_launch_counts()
+        with BudgetCounters() as counters, ScanRecorder() as recorder:
+            engine = bt.BloomSearchEngine(engine_config(**serving), store, store)
+            engine.start()
+            engine._row_cache.needle_cache_enabled = False
+            counters.attach(engine._device_backend)
+            t0 = time.perf_counter()
+            engine.warmup(block=True)
+            out["warmup_s"] = time.perf_counter() - t0
+            counters.after_warmup = True
+            out["after_warmup"] = {"counters": counters.snapshot(),
+                                   "row_cache": engine.stats()["row_cache"],
+                                   "timeline": engine.stats().get("warmup")}
+            warm_segments = len(recorder.segment_launches)
+            warm_dense = len(recorder.dense_launches)
+            log(f"beyond budget warmup: {out['warmup_s']:.3f} s; {out['after_warmup']}")
+
+            shapes = needle_shapes()
+            add_common_shapes(engine, shapes)
+            shape_out: dict = {}
+            results = check_shapes(engine, host, shapes, reps, shape_out)
+            out["warm_p50_ms"] = {k[len("warm_p50_ms_"):]: v for k, v in shape_out.items()
+                                  if k.startswith("warm_p50_ms_")}
+            out["spans_ms"] = {k[len("spans_ms_"):]: v for k, v in shape_out.items()
+                               if k.startswith("spans_ms_")}
+            out["churn"] = check_churn(host, churn_sweep(engine, rows_total), "churn")
+            log(f"beyond budget churn sweep: {out['churn']}")
+            alone: dict = {}
+            run_concurrent(engine, shapes, results, alone)
+            swept: list = []
+            sweeper = threading.Thread(target=lambda: swept.extend(
+                churn_sweep(engine, rows_total)))
+            under: dict = {}
+            sweeper.start()
+            try:
+                run_concurrent(engine, shapes, results, under)
+            finally:
+                sweeper.join(timeout=900)
+            if sweeper.is_alive() or len(swept) != CHURN_LOOKUPS:
+                raise AssertionError(f"the churn sweep beside the burst made {len(swept)} "
+                                     f"of {CHURN_LOOKUPS} lookups")
+            out["burst"] = {"alone": alone, "under_churn": under,
+                            "churn_beside": check_churn(host, swept, "churn beside the burst")}
+            log(f"beyond budget burst: {out['burst']}")
+            engine.drain_background_pins(timeout=600)
+            stats = engine.stats()
+            backend = engine._device_backend
+            with backend._lock:
+                resident = sum(sb.used - sb.dead for sb in backend._superbanks.values())
+            with engine._row_cache._lock:
+                matrix = engine._row_cache._bucket.matrix
+            out["counters"] = counters.snapshot()
+            segment_launches = recorder.segment_launches[warm_segments:]
+            dense_launches = recorder.dense_launches[warm_dense:]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["seconds"] = time.perf_counter() - t_phase
+        rc, warm_rc = stats["row_cache"], out["after_warmup"]["row_cache"]
+        c = out["counters"]
+        out["row_cache"] = rc
+        out["queries_row_cache"] = {k: rc[k] - warm_rc[k] for k in
+                                    ("pins", "evictions", "compactions", "scan_launches")}
+        out["residency"] = {"blocks_pinned": rc["pinned_blocks"], "blocks": len(blocks),
+                            "columns_resident": resident, "columns": budgets["columns"]}
+        out["launches"] = {"probe": pk.launch_counts(), "scan": ks.launch_counts()}
+        bound = memory_bound(budgets, engine.stats()["warmup"]["reserved_chunks"],
+                             max(-(-b.uncompressed_size // 480) for b in blocks), baseline)
+        out["memory_bound"] = bound
+        log(f"beyond budget counters {c}; row cache {rc}; residency {out['residency']}; "
+            f"launches {out['launches']}; background pin failures "
+            f"{stats['background_pin_failures']}, churn skipped pins "
+            f"{stats['background_pins_churn_skipped']} warms {stats['bank_warms_churn_skipped']}")
+        log(f"beyond budget peak device memory {out['peak_bytes']} bytes against the bound "
+            f"{bound['bound']} ({bound})")
+        queries = out["queries_row_cache"]
+        for name, n in (("bank column evictions", c["bank_column_evictions"]),
+                        ("superbank compactions", c["superbank_compactions"]),
+                        ("row-cache evictions", rc["evictions"]),
+                        ("row-cache compactions", rc["compactions"]),
+                        ("sparse cold probes", c["sparse_cold_probes"]),
+                        ("completed background bank warms", c["bank_warms_completed"]),
+                        ("completed background pins", queries["pins"])):
+            if n <= 0:
+                raise AssertionError(f"beyond budget: no {name}")
+        degrades = c["bank_churn_errors"]
+        log(f"beyond budget: {degrades} degrades to host probing (BankChurnError) against "
+            f"{c['device_probe_calls']} device probe calls")
+        if degrades > c["device_probe_calls"]:
+            raise AssertionError("beyond budget: more degrades to host probing than device probes")
+        if stats["background_pin_failures"]:
+            raise AssertionError("beyond budget: a background pin failed on the device")
+        for counter in ("reduce_and", "clauses"):
+            if out["launches"]["probe"][counter] < 1:
+                raise AssertionError(f"beyond budget: no {counter} probe launch")
+        for counter in ("stream", "segments"):
+            if out["launches"]["scan"][counter] < 1:
+                raise AssertionError(f"beyond budget: no {counter} scan launch")
+        if any(not lens or not all(lens) for lens in dense_launches) or any(
+                not all(lens) for _, lens in segment_launches):
+            raise AssertionError("beyond budget: a query scan launched padding needles")
+        if out["peak_bytes"] > bound["bound"]:
+            raise AssertionError(f"beyond budget: peak device memory {out['peak_bytes']} "
+                                 f"exceeds the bound {bound['bound']}")
+
+        # Every launch shape of the phase against its plain version.
+        probe_shapes, scan_shapes = pk.launch_shapes(), ks.launch_shapes()
+        out["probe_shapes"] = len(probe_shapes)
+        out["scan_shapes"] = len(scan_shapes)
+        out["probe_cases"] = phase_main_shapes(dev, probe_shapes, {})
+        out["scan_cases"] = recheck_scans(ks, matrix, scan_shapes, recorder.args)
+        del matrix
+        log(f"beyond budget: {len(probe_shapes)} probe and {len(scan_shapes)} scan launch "
+            "shapes re-run against their plain versions, bit-identical")
+    finally:
+        if engine is not None:
+            engine.stop(timeout=600)
+        host.stop(timeout=600)
+        torch.cuda.empty_cache()
+    out["wide_bank"] = wide_bank_turns(dev)
+    return out
+
+
+def beyond_budget_record(out: dict) -> dict:
+    """The phase's numbers for the kernels line: budgets, per shape p50 and
+    engine spans, churn p50/p95, burst qps alone and under churn,
+    residency, counters (and warmup's share),
+    launches, the peak against its bound, the re-checked shapes, the wide
+    bank's turns and the card."""
+    burst = out["burst"]
+    return {
+        "card": card_line(), "budgets": out["budgets"], "warmup_s": out["warmup_s"],
+        "seconds": out["seconds"], "warm_p50_ms": out["warm_p50_ms"],
+        "spans_ms": out["spans_ms"], "churn": out["churn"],
+        "burst_alone": burst["alone"], "burst_under_churn": burst["under_churn"],
+        "churn_beside_burst": burst["churn_beside"], "residency": out["residency"],
+        "counters": out["counters"], "after_warmup": out["after_warmup"]["counters"],
+        "row_cache": out["row_cache"],
+        "queries_row_cache": out["queries_row_cache"], "launches": out["launches"],
+        "peak_bytes": out["peak_bytes"], "memory_bound": out["memory_bound"],
+        "rechecked": {"probe_shapes": out["probe_shapes"], "scan_shapes": out["scan_shapes"],
+                      "probe": {c: {k: v for k, v in case.items() if k != "key"}
+                                for c, case in out["probe_cases"].items()},
+                      "scan": {m: {k: v for k, v in case.items() if k not in ("key", "args")}
+                               for m, case in out["scan_cases"].items()}},
+        "wide_bank": out["wide_bank"],
+    }
+
+
+def wide_bank_turns(dev, rows: int = REFSCALE_ROWS, cols: int = WIDE_BANK_COLS) -> dict:
+    """The one-card combined probe at a wide bank (``cols`` columns of
+    refscale's rows, random words made in pieces): reduce-AND at T = 1, and
+    the widest output a launch writes (clauses at T = 16, 16 clauses and 16
+    members), each as the plan call into page-locked memory against the
+    launch into device memory and one ``.cpu()`` copy, ten turns a form,
+    with phase 6's verdict (``exp_mesh_join.combined_turns``) -> {launch
+    counter: turns}."""
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bank = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    step = 65_536
+    for r0 in range(0, rows, step):
+        bank[r0:r0 + step] = random_bank(min(step, rows - r0), cols, gen, dev)
+    clause_bits, member_bits = epilogue_args("probe_clauses_pack", 16, 16, 16)
+    out = {}
+    for counter, T, extra in (("reduce_and", 1, {"and_bits": 1}),
+                              ("clauses", 16, {"clause_bits": clause_bits,
+                                               "member_bits": member_bits})):
+        r, s = (a.numpy() for a in probe_sets(gen, rows, T, 1)[0])
+        turns = mj.combined_turns(bank, r, s, T, K, counter, extra, 200,
+                                  f"wide bank {counter} R={rows} C={cols} "
+                                  f"({bank.numel() * 4} bytes) T={T}", log)
+        out[counter] = {"T": T, "median_ms": turns["median_ms"], "verdict": turns["verdict"],
+                        "call_ms": turns["call_ms"]}
+    del bank
+    torch.cuda.empty_cache()
+    return {"C": cols, "bytes": rows * cols * 4, **out}
+
+
+# -- phase 10: the tools --------------------------------------------------------
 
 
 def floor_case(pk, bank: torch.Tensor, gen, dev, label: str, T: int = 4,
@@ -2399,7 +2834,7 @@ def phase_cli(dev) -> None:
 
 
 def phase_tools(dev, target_mb: int, seed: int) -> dict:
-    """Phase 9: (a) K1f against its plain version at the bench shape and at
+    """Phase 10: (a) K1f against its plain version at the bench shape and at
     the refscale bank's C = 256, then the floor tool, whose chains alone
     give K1f's launch count; (b) the bench's T1 record of that reading and
     its needle timing on the refscale dataset through a probe-backend
@@ -2588,6 +3023,9 @@ def main(argv=None) -> int:
         log(json.dumps({"mesh_engine": mesh_engine}))
     finally:
         shutil.rmtree(sidecar, ignore_errors=True)
+    beyond = beyond_budget_record(phase_beyond_budget(dev, args.target_mb, args.seed))
+    done("beyond budget")
+    log(json.dumps({"beyond_budget": beyond}))
     tools = phase_tools(dev, args.target_mb, args.seed)
     done("tools")
     log(json.dumps({"tools": {k: v for k, v in tools.items() if k != "entry"}}))
@@ -2629,7 +3067,7 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main path")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "beyond_budget": beyond}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
