@@ -52,6 +52,7 @@ from ..parallel.mesh import (
     sharded_update_columns,
     sharded_zeros,
 )
+from ..utils import remember
 
 
 class BackendReleasedError(RuntimeError):
@@ -281,6 +282,9 @@ class DeviceProbeBackend:
         self._lru: dict[tuple, None] = {}
         # file pointer -> [(superbank key, segment key)] for invalidation.
         self._by_file: dict[bytes, list[tuple[tuple[int, int], bytes]]] = {}
+        # The last TOMBSTONE_MEMORY tombstoned files (an ordered set): a
+        # load of one that raced its tombstone never inserts afterwards.
+        self._tombstoned: dict[bytes, None] = {}
 
     # -- residency ------------------------------------------------------
 
@@ -337,9 +341,16 @@ class DeviceProbeBackend:
             sb.segments = {}
             sb.capacity = sb.used = sb.dead = 0
 
-    def invalidate(self, file_pointer: bytes) -> None:
-        """Drop any cached banks of a tombstoned/replaced file."""
+    def invalidate(self, file_pointer: bytes, tombstoned: bool = False) -> None:
+        """Drop any cached banks of a tombstoned/replaced file.
+
+        ``tombstoned``: the file is gone for good, so a load of it that
+        raced this call (a background warm, a warm-on-flush of a file a
+        merge already replaced) does not insert its banks afterwards, where
+        no later tombstone would remove them."""
         with self._lock:
+            if tombstoned:
+                remember(self._tombstoned, file_pointer)
             for mk, seg_key in self._by_file.pop(file_pointer, []):
                 sb = self._superbanks.get(mk)
                 if sb is not None:
@@ -380,10 +391,14 @@ class DeviceProbeBackend:
                 if sb is None:
                     sb = Superbank(mk[0], mk[1], mk[2], self.device, self.mesh)
                     self._superbanks[mk] = sb
+                if file_pointer in self._tombstoned:
+                    return sb
                 if seg_key not in sb.segments:
                     sb.insert(seg_key, host_bank, staged=staged)
                     self._by_file.setdefault(file_pointer, []).append((mk, seg_key))
         with self._lock:
+            if file_pointer in self._tombstoned:
+                return sb
             self._lru.pop((mk, seg_key), None)
             self._lru[(mk, seg_key)] = None
             self._evict_if_needed()

@@ -912,6 +912,10 @@ class BloomSearchEngine:
         self._query_timings: deque = deque(maxlen=128)
         self._next_query_id = 0
         self._active_query_ids: set[int] = set()
+        # Active queries past their last file read, applying the tombstones
+        # they drained: a merge never defers behind them (no later drain of
+        # theirs would apply it).
+        self._draining_query_ids: set[int] = set()
         self._deferred_tombstones: list[tuple[bytes, set[int]]] = []
         self._query_track_lock = threading.Lock()
         # Signaled whenever a query finishes; stop() waits on it so deferred
@@ -2084,6 +2088,7 @@ class BloomSearchEngine:
             # tombstoning is still in flight.
             drain: list[bytes] = []
             with self._query_track_lock:
+                self._draining_query_ids.add(query_id)
                 remaining: list[tuple[bytes, set[int]]] = []
                 for pointer, waiting_on in self._deferred_tombstones:
                     waiting_on.discard(query_id)
@@ -2096,6 +2101,7 @@ class BloomSearchEngine:
                 self._tombstone_everywhere(pointer)
             with self._queries_drained:
                 self._active_query_ids.discard(query_id)
+                self._draining_query_ids.discard(query_id)
                 self._queries_drained.notify_all()
 
     def _tombstone_everywhere(self, pointer: bytes) -> None:
@@ -2103,8 +2109,11 @@ class BloomSearchEngine:
             self.data_store.tombstone_file(pointer)
         except Exception:
             logger.exception("tombstone failed for %r", pointer)
+        # Tombstoned: a background warm or pin of this file still queued
+        # (or a warm-on-flush of a file merged meanwhile) must not make it
+        # resident again afterwards.
         if self._device_backend is not None:
-            self._device_backend.invalidate(pointer)
+            self._device_backend.invalidate(pointer, tombstoned=True)
         if self._row_cache is not None:
             self._row_cache.invalidate_file(pointer)
         if self._serving_cache is not None:
@@ -2126,10 +2135,13 @@ class BloomSearchEngine:
         with self._bank_mmap_lock:
             self._bank_mmaps.pop(pointer, None)
         with self._query_track_lock:
-            if self._active_query_ids:
-                # Wait only on the queries active RIGHT NOW — later queries
-                # planned after the metadata delete never see this pointer.
-                self._deferred_tombstones.append((pointer, set(self._active_query_ids)))
+            # Wait only on the queries active RIGHT NOW — later queries
+            # planned after the metadata delete never see this pointer — and
+            # still reading: a draining query has claimed its tombstones,
+            # so one deferred behind it alone would never be applied.
+            reading = self._active_query_ids - self._draining_query_ids
+            if reading:
+                self._deferred_tombstones.append((pointer, reading))
                 return
         self._tombstone_everywhere(pointer)
 

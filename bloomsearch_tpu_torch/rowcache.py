@@ -91,6 +91,7 @@ from .parallel.mesh import (
     sharded_update_rows,
     sharded_zeros_rows,
 )
+from .utils import remember
 
 # Stream chunk geometry: 512-byte physical rows (128 packed int32 words, one
 # scan-kernel warp's load); the last MAX_NEEDLE bytes of each chunk
@@ -434,6 +435,9 @@ class DeviceRowCache:
         self.evictions = 0   # blocks evicted for capacity (not invalidation)
         self.compactions = 0 # stream compaction passes
         self._closed = False
+        # The last tombstoned files (utils.remember): a pin of one that
+        # raced its tombstone is never published (``invalidate_file``).
+        self._tombstoned: dict[bytes, None] = {}
 
     # -- residency ------------------------------------------------------
 
@@ -536,8 +540,13 @@ class DeviceRowCache:
                 self._reserved_cap = 0
 
     def invalidate_file(self, pointer: bytes) -> None:
+        """Drop a tombstoned file's pinned blocks. The file is gone for
+        good, so a pin of it that raced this call (a background pin queued
+        by a query that has drained) is not published afterwards, where no
+        later tombstone would remove it."""
         with self._mutation_lock():
             with self._lock:
+                remember(self._tombstoned, pointer)
                 for key in [k for k in self._blocks if k[0] == pointer]:
                     self._remove_locked(key)
             self._maybe_compact()
@@ -834,6 +843,10 @@ class DeviceRowCache:
                 row_offsets, row_lengths, fetcher=fetcher,
             )
             with self._lock:
+                if key[0] in self._tombstoned:
+                    # Never published: its rows stay slack past ``used``,
+                    # and a scan of the returned block finds no segment.
+                    return block
                 bucket.matrix = matrix
                 bucket.cap = cap
                 if n_chunks > 0:

@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 
 from .rowcache import CHUNK_BYTES, STREAM_STRIDE
+from .utils import remember
 
 logger = logging.getLogger("bloomsearch_tpu_torch.servingcache")
 
@@ -87,6 +88,8 @@ class ServingStateCache:
         self.hits = 0
         self.misses = 0
         self.stores = 0
+        # Name prefixes of the last tombstoned files (utils.remember).
+        self._tombstoned: dict[str, None] = {}
 
     # -- paths -------------------------------------------------------------
 
@@ -246,7 +249,16 @@ class ServingStateCache:
                     out.write(np.ascontiguousarray(row_lengths, dtype=np.int32).tobytes())
                     out.write(ci.tobytes())
                     out.write(TRAILER)
-                os.replace(tmp, path)
+                with self._lock:
+                    # Under the lock ``invalidate_file`` marks a tombstone
+                    # with: a store racing it lands before its listing or
+                    # not at all.
+                    landed = self._prefix(pointer) not in self._tombstoned
+                    if landed:
+                        os.replace(tmp, path)
+                if not landed:
+                    os.unlink(tmp)
+                    return False
             except BaseException:
                 try:
                     os.unlink(tmp)
@@ -263,7 +275,10 @@ class ServingStateCache:
     # -- invalidation --------------------------------------------------------
 
     def invalidate_file(self, pointer: bytes) -> None:
-        """Remove every sidecar belonging to a (tombstoned) file."""
+        """Remove every sidecar belonging to a (tombstoned) file; the file is
+        gone for good, so no later ``store`` of it lands."""
+        with self._lock:
+            remember(self._tombstoned, self._prefix(pointer))
         prefix = self._prefix(pointer) + "-"
         try:
             for name in os.listdir(self.directory):

@@ -98,3 +98,16 @@ def collect_query_sync(query_fn, q, timeout: float | None = None) -> list:
     except _queue.Empty:
         pass
     return rows
+
+
+# Tombstoned files a cache remembers (``remember``): late background work
+# on a file (a bank warm, a row pin) is a few queued jobs, far below this.
+TOMBSTONE_MEMORY = 4096
+
+
+def remember(recent: dict, key) -> None:
+    """Add ``key`` to an insertion-ordered set (a dict of None values) of
+    at most ``TOMBSTONE_MEMORY`` keys, dropping the oldest."""
+    recent[key] = None
+    if len(recent) > TOMBSTONE_MEMORY:
+        del recent[next(iter(recent))]

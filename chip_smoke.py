@@ -150,11 +150,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``tools/exp_compile_cache.warm_start``: a child process loads the
    built libraries and launches, no nvcc; host clock to a synchronize);
    (d) ``cli`` load, search (token, field:token with a regex, ``--limit``)
-   and merge on the card, the rows equal to the host probe's.
+   and merge on the card, the rows equal to the host probe's;
+11. writes under serving: 4 of the refscale files (every sixth, counted
+   back from the newest) hardlinked beside the dataset behind a
+   ``MemoryMetaStore`` (a merge publishes atomically), the serving cell's
+   settings with a sidecar, ``ttl_predicate`` expiring partition 00 and
+   the needle cache on (the engine's default): ``warmup()`` and every
+   phase-5/7 shape against the host probe; then a writer thread ingests
+   1,000,000 rows in the refscale generator's shape through
+   ``ingest_serialized`` (a partition a 10,000-row batch, a flush every
+   100,000 rows, so warm-on-flush inserts grow the superbank), while 8
+   query threads run the shapes, the live rows' needle and read-your-writes
+   lookups of uids whose batch's ``done`` had resolved, a merge starts once
+   half the batches are durable and another after ingest ends; every query
+   is held to the invariants (no row twice; each base row outside 00 once,
+   one of 00 at most once; each live row at most once and, outside 00,
+   exactly once when durable before the query began; no row never
+   written); at quiescence every shape and 200 sampled uids against the
+   host probe, one more pin between two passes of the shapes (a needle
+   cached before it misses after it), a restart from the sidecar, which
+   must hold no tombstoned file, and the same checks; the counters
+   (``WriteCounters``: warm-on-flush inserts, superbank growths, segment
+   removals by tombstone, superbank and stream compactions, stream blocks
+   a tombstone removed, tombstones deferred behind a query and applied by
+   a draining one, needle-cache hits and version misses) must be > 0, and
+   warm-on-flush failures, ERROR log records, uncaught thread exceptions,
+   background pin failures and still-deferred tombstones 0; degrades to
+   host probing no more than device probes; every probe and scan launch
+   shape re-run against its plain version (the restart's too); the peak
+   device memory under ``writes_memory_bound``. Then the same run on a
+   4-shard mesh (four cards when four are visible, else cuda:0 four
+   times) at a quarter of the rows over 2 files, each sharded scan shape
+   re-run against the plain version on the mesh's logical stream.
 
 The line before the last is the kernels' JSON record, with phase 9's
-numbers under ``beyond_budget``; the last line is ``{"ok": true, "device":
-{...}}``.
+numbers under ``beyond_budget`` and phase 11's under ``writes``; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1080,16 +1111,17 @@ def needle_shapes() -> dict:
     }
 
 
-def add_common_shapes(engine, shapes: dict) -> None:
+def add_common_shapes(engine, shapes: dict, uid: str = "u00000000") -> None:
     """A common word under a partition prefilter (the words of one known
-    row: every row carries a unique uid token) and an 18-term OR."""
+    row, ``uid``'s: every row carries a unique uid token) and an 18-term
+    OR."""
     import bloomsearch_tpu_torch as bt
     from bloomsearch_tpu_torch import perf
 
     q = bt.new_query
-    _, sample = timed(engine, q().token("u00000000").build())
+    _, sample = timed(engine, q().token(uid).build())
     if len(sample) != 1:
-        raise AssertionError(f"uid u00000000 matched {len(sample)} rows")
+        raise AssertionError(f"uid {uid} matched {len(sample)} rows")
     word = next(
         str(v).split()[0] for k, v in sample[0].items() if k not in ("uid", "part")
     )
@@ -2971,6 +3003,1000 @@ def combined_call_turns(dev, main_cases: dict, refscale_rows: int = REFSCALE_ROW
     return result
 
 
+# -- phase 11: writes under serving ------------------------------------------------
+
+WRITE_FILES = 4  # of refscale's 24: every sixth, counted back from the newest
+WRITE_ROWS = 1_000_000
+WRITE_BATCH = 10_000  # rows an ingest_serialized call (one partition)
+WRITE_FLUSH_ROWS = 100_000  # max_buffered_rows: a flush every 10 batches
+WRITE_THREADS = 8
+WRITE_NEEDLE = "writeneedle7k2q"
+WRITE_NEEDLE_EVERY = 2_000  # live rows that carry the phase's needle
+WRITE_SAMPLED_UIDS = 200
+WRITE_MESH_FILES = 2
+REFSCALE_UIDS = 12_220_000  # refscale's uids run 0 .. 12,219,999 (the needles have none)
+EXPIRED_PART = "00"
+
+
+class CountingNeedleCache(dict):
+    """The row cache's needle cache as a dict that records, on the thread
+    that looks entries up, each lookup (``pop(needle, None)``,
+    ``rowcache.py``'s lookup; an eviction pops without a default) with the
+    stream version its needle was last cached at, if it was: a stream
+    mutation bumps the version and clears the cache, so a needle cached
+    before it misses."""
+
+    def __init__(self, entries, local):
+        super().__init__(entries)
+        self.local = local
+        self.cached_at: dict[bytes, int] = {key: ent[0] for key, ent in entries.items()}
+
+    def __setitem__(self, key, ent):
+        self.cached_at[key] = ent[0]
+        dict.__setitem__(self, key, ent)
+
+    def pop(self, key, *default):
+        ent = dict.pop(self, key, *default)
+        looked = getattr(self.local, "looked", None)
+        if not default:
+            self.cached_at.pop(key, None)  # evicted for room, not by a version
+        elif looked is not None:
+            looked.append((ent, self.cached_at.get(key)))
+        return ent
+
+
+class WriteCounters:
+    """What the write path does on the device, counted by wrapping (the
+    engine has no option for it): superbank growths (``Superbank._grow`` of
+    a bank that held columns) and the largest capacity, segment removals
+    (``Superbank.remove``) and those a tombstone made
+    (``DeviceProbeBackend.invalidate(..., tombstoned=True)``), superbank
+    compactions, stream blocks a tombstone removed
+    (``DeviceRowCache.invalidate_file``), needle-cache lookups by outcome
+    (``_launch_bucket_scan`` over a ``CountingNeedleCache``: a hit, a miss
+    of a needle cached at an older stream version, or a cold miss), and on
+    one engine
+    (``attach``) warm-on-flush files and the groups they inserted
+    (``_on_file_written``), tombstones deferred behind a query in flight
+    (``_tombstone_or_defer``, with the largest ``stats()["deferred_tombstones"]``
+    seen) and those a draining query applied (``_tombstone_everywhere`` on
+    a query thread), device probe calls and ``BankChurnError``s
+    (``probe_groups``); ERROR records of the package's loggers (the
+    warm-on-flush failure among them) and exceptions any thread left
+    uncaught."""
+
+    KEYS = ("warm_on_flush_files", "warm_on_flush_inserts", "superbank_growths",
+            "max_capacity", "bank_segment_removals", "bank_tombstone_segments",
+            "superbank_compactions", "stream_tombstone_blocks", "needle_cache_hits",
+            "needle_cache_version_misses", "needle_cache_misses", "tombstones_deferred",
+            "max_deferred_tombstones", "tombstones_applied", "tombstones_applied_by_queries",
+            "device_probe_calls", "bank_churn_errors", "warm_on_flush_failures",
+            "error_logs", "thread_exceptions")
+
+    def __init__(self):
+        import logging
+
+        from bloomsearch_tpu_torch import rowcache
+        from bloomsearch_tpu_torch.bloom import bank
+
+        self.bank, self.rowcache = bank, rowcache
+        self.counts = dict.fromkeys(self.KEYS, 0)
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.errors: list[str] = []
+        counters = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                counters.add("error_logs")
+                if msg.startswith("bank warm-on-flush failed"):
+                    counters.add("warm_on_flush_failures")
+                with counters.lock:
+                    counters.errors.append(f"{record.name}: {msg}")
+
+        self.handler = Handler(level=logging.ERROR)
+
+    def add(self, key: str, n: int = 1) -> None:
+        with self.lock:
+            self.counts[key] += n
+
+    def peak(self, key: str, n: int) -> None:
+        with self.lock:
+            self.counts[key] = max(self.counts[key], n)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return dict(self.counts)
+
+    def __enter__(self):
+        import logging
+
+        bank, rc = self.bank, self.rowcache
+        sb, backend, cache = bank.Superbank, bank.DeviceProbeBackend, rc.DeviceRowCache
+        self.orig = [(sb, "_grow", sb._grow), (sb, "remove", sb.remove),
+                     (sb, "maybe_compact", sb.maybe_compact),
+                     (backend, "invalidate", backend.invalidate),
+                     (cache, "invalidate_file", cache.invalidate_file),
+                     (cache, "_launch_bucket_scan", cache._launch_bucket_scan)]
+        grow, remove, compact, invalidate, invalidate_file, launch = (o for *_, o in self.orig)
+        counters = self
+
+        def counted_grow(bank_, min_capacity):
+            grew = bank_.capacity > 0
+            grow(bank_, min_capacity)
+            counters.peak("max_capacity", bank_.capacity)
+            if grew:
+                counters.add("superbank_growths")
+
+        def counted_remove(bank_, key):
+            if key in bank_.segments:
+                counters.add("bank_segment_removals")
+            return remove(bank_, key)
+
+        def counted_compact(bank_, force=False):
+            dead = bank_.dead
+            compact(bank_, force)
+            if dead and not bank_.dead:
+                counters.add("superbank_compactions")
+
+        def counted_invalidate(backend_, pointer, tombstoned=False):
+            with backend_._lock:
+                segments = len(backend_._by_file.get(pointer, ()))
+                invalidate(backend_, pointer, tombstoned)
+            if tombstoned:
+                counters.add("bank_tombstone_segments", segments)
+
+        def counted_invalidate_file(cache_, pointer):
+            with cache_._lock:
+                blocks = sum(1 for key in cache_._blocks if key[0] == pointer)
+            invalidate_file(cache_, pointer)
+            counters.add("stream_tombstone_blocks", blocks)
+
+        def counted_launch(cache_, bucket, matrix, version, batch):
+            counters.local.looked = []
+            try:
+                return launch(cache_, bucket, matrix, version, batch)
+            finally:
+                looked, counters.local.looked = counters.local.looked, None
+                for ent, cached_at in looked:
+                    if ent is not None and ent[0] == version:
+                        counters.add("needle_cache_hits")
+                    elif cached_at is not None and cached_at != version:
+                        counters.add("needle_cache_version_misses")
+                    else:
+                        counters.add("needle_cache_misses")
+
+        sb._grow, sb.remove, sb.maybe_compact = counted_grow, counted_remove, counted_compact
+        backend.invalidate = counted_invalidate
+        cache.invalidate_file, cache._launch_bucket_scan = counted_invalidate_file, counted_launch
+        logging.getLogger("bloomsearch_tpu_torch").addHandler(self.handler)
+        self.excepthook = threading.excepthook
+
+        def hook(args):
+            counters.add("thread_exceptions")
+            with counters.lock:
+                counters.errors.append(f"thread {args.thread.name}: {args.exc_value!r}")
+            self.excepthook(args)
+
+        threading.excepthook = hook
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        for owner, name, fn in self.orig:
+            setattr(owner, name, fn)
+        logging.getLogger("bloomsearch_tpu_torch").removeHandler(self.handler)
+        threading.excepthook = self.excepthook
+
+    def attach(self, engine) -> None:
+        """Wrap one engine's write-path methods and its backend's probe
+        entry, and give its row cache a counting needle cache."""
+        from bloomsearch_tpu_torch.bloom.bank import BankChurnError
+
+        counters = self
+        written, defer = engine._on_file_written, engine._tombstone_or_defer
+        everywhere = engine._tombstone_everywhere
+        backend = engine._device_backend
+        probe_groups = backend.probe_groups
+
+        def counted_written(pointer, metadata, bank_arrays=None):
+            written(pointer, metadata, bank_arrays)
+            with backend._lock:
+                inserted = len(backend._by_file.get(pointer, ()))
+            counters.add("warm_on_flush_files")
+            counters.add("warm_on_flush_inserts", inserted)
+
+        def counted_defer(pointer):
+            with engine._query_track_lock:
+                before = len(engine._deferred_tombstones)
+            defer(pointer)
+            with engine._query_track_lock:
+                deferred = len(engine._deferred_tombstones) > before
+            if deferred:
+                counters.add("tombstones_deferred")
+                counters.peak("max_deferred_tombstones", engine.stats()["deferred_tombstones"])
+
+        def counted_everywhere(pointer):
+            everywhere(pointer)
+            counters.add("tombstones_applied")
+            if threading.current_thread().name == "bloomsearch-query":
+                counters.add("tombstones_applied_by_queries")
+
+        def counted_probe(*args, **kwargs):
+            try:
+                out = probe_groups(*args, **kwargs)
+            except BankChurnError:
+                counters.add("bank_churn_errors")
+                raise
+            counters.add("device_probe_calls")
+            return out
+
+        engine._on_file_written, engine._tombstone_or_defer = counted_written, counted_defer
+        engine._tombstone_everywhere, backend.probe_groups = counted_everywhere, counted_probe
+        bucket = engine._row_cache._bucket
+        with engine._row_cache._lock:
+            bucket.needle_cache = CountingNeedleCache(bucket.needle_cache, self.local)
+
+
+def newest_spread(files: list, n: int) -> list:
+    """``n`` files spread evenly over the dataset's, counted back from the
+    newest (the generator plants its needle rows in its last flush)."""
+    by_age = sorted(files, key=lambda mf: os.stat(mf.pointer.decode()).st_mtime_ns, reverse=True)
+    return by_age[::len(by_age) // n][:n]
+
+
+def writes_store(src: str, n_files: int, directory: str):
+    """Hardlinks of ``n_files`` of the dataset's files in ``directory`` (the
+    files are immutable and a merge only unlinks its links), and a
+    ``MemoryMetaStore`` that lists them: a merge then publishes its output
+    and drops its inputs in one step, which a ``FileSystemDataStore``
+    serving as its own MetaStore does not (its docstring: a query may then
+    plan both, or neither) -> (data store, meta store, the files)."""
+    import bloomsearch_tpu_torch as bt
+
+    picked = newest_spread(bt.FileSystemDataStore(src).get_maybe_files_for_query(None),
+                                n_files)
+    for mf in picked:
+        name = os.path.basename(mf.pointer.decode())
+        os.link(mf.pointer.decode(), os.path.join(directory, name))
+    store = bt.FileSystemDataStore(directory)
+    meta = bt.MemoryMetaStore()
+    files = store.get_maybe_files_for_query(None)
+    meta.update([bt.WriteOperation(mf.metadata, mf.pointer, file_size=mf.size) for mf in files],
+                [])
+    return store, meta, files
+
+
+def block_rows(store, mf, blk) -> list[bytes]:
+    from bloomsearch_tpu_torch.compression import decompress_block
+    from bloomsearch_tpu_torch.file_format import read_block_rows_compressed
+    from bloomsearch_tpu_torch.scan import split_rows_arrays
+
+    with store.open_file(mf.pointer) as fh:
+        data = decompress_block(read_block_rows_compressed(fh, blk), blk.compression,
+                                blk.uncompressed_size)
+    _, offsets, lengths = split_rows_arrays(data)
+    return [data[o:o + n] for o, n in zip(offsets.tolist(), lengths.tolist())]
+
+
+def base_uids(store, files, per_block: int = 10) -> list[str]:
+    """Uids of the first rows of every base block."""
+    out = []
+    for mf in files:
+        for blk in mf.metadata.data_blocks:
+            for row in block_rows(store, mf, blk)[:per_block]:
+                uid = json.loads(row).get("uid")
+                if uid:
+                    out.append(uid)
+    return out
+
+
+def write_rows(n: int, uid0: int, seed: int = 2) -> tuple[list[bytes], list[str]]:
+    """``n`` rows in the refscale generator's shape (``perf.generate_fast``:
+    1-5 random keys with 1-5-word values from its key and word pools, a
+    unique ``u%08x`` uid and the partition), uids from ``uid0``; each
+    ``WRITE_NEEDLE_EVERY``-th row carries ``WRITE_NEEDLE``. Batch b of
+    ``WRITE_BATCH`` rows goes to partition b mod 10 -> (rows, each batch's
+    partition)."""
+    import random
+    import string
+
+    rng = random.Random(seed)
+    np_rng = np.random.default_rng(seed)
+    keys = ["".join(rng.choices(string.ascii_lowercase, k=rng.randrange(4, 10)))
+            for _ in range(1 << 14)]
+    words = ["".join(rng.choices(string.ascii_lowercase + string.digits, k=rng.randrange(3, 12)))
+             for _ in range(1 << 15)]
+    pool = []
+    for _ in range(1 << 16):
+        pool.append("".join(
+            f'"{keys[rng.randrange(len(keys))]}":"'
+            + " ".join(words[rng.randrange(len(words))] for _ in range(rng.randrange(1, 6)))
+            + '",' for _ in range(rng.randrange(1, 6))))
+    parts = [f"{b % 10:02d}" for b in range(-(-n // WRITE_BATCH))]
+    draws = np_rng.integers(0, len(pool), size=n).tolist()
+    rows = []
+    for i, t in enumerate(draws):
+        needle = f'"wnote":"alpha {WRITE_NEEDLE} omega",' if i % WRITE_NEEDLE_EVERY == 0 else ""
+        rows.append(("{" + pool[t] + needle
+                     + f'"uid":"u{uid0 + i:08x}","part":"{parts[i // WRITE_BATCH]}"}}').encode())
+    return rows, parts
+
+
+def row_ident(row: dict) -> str:
+    return row.get("uid") or json.dumps(row, sort_keys=True)
+
+
+class WriteRun:
+    """One run of the write path (steps 2-5): a writer thread ingests
+    ``rows`` through ``ingest_serialized`` a batch at a time, each with a
+    ``done`` future whose resolution time is kept; ``WRITE_THREADS`` query
+    threads run the shapes, the needle of the live rows and read-your-writes
+    lookups of uids whose batch was durable when issued; a merge starts
+    once half the rows are durable and another after ingest ends; every
+    query's rows and start time are kept for ``check``."""
+
+    def __init__(self, engine, shapes: dict, rows: list[bytes], parts: list[str], uid0: int):
+        import bloomsearch_tpu_torch as bt
+
+        self.engine, self.rows, self.parts, self.uid0 = engine, rows, parts, uid0
+        self.shapes = dict(shapes)
+        self.shapes["write_needle"] = bt.new_query().token(WRITE_NEEDLE).build()
+        self.durable_at: dict[int, float] = {}  # batch -> when its done resolved
+        self.queries: list[tuple] = []  # (shape, start, end, idents)
+        self.lookups: list[tuple] = []  # (uid index, start, end, idents)
+        self.errors: list[BaseException] = []
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.merges: list[dict] = []
+
+    def writer(self) -> None:
+        from concurrent.futures import Future
+
+        try:
+            self.t_ingest0 = time.perf_counter()
+            for b, start in enumerate(range(0, len(self.rows), WRITE_BATCH)):
+                done = Future()
+                done.add_done_callback(lambda f, b=b: self._durable(b, f))
+                self.engine.ingest_serialized(self.rows[start:start + WRITE_BATCH], done=done,
+                                              timeout=600, partition_id=self.parts[b])
+            self.engine.flush(timeout=600)
+            self.t_ingest1 = time.perf_counter()
+        except BaseException as exc:
+            self.errors.append(exc)
+
+    def _durable(self, b: int, fut) -> None:
+        if fut.exception() is not None:
+            self.errors.append(fut.exception())
+            return
+        with self.lock:
+            self.durable_at[b] = time.perf_counter()
+
+    def merge(self, label: str) -> None:
+        try:
+            t0 = time.perf_counter()
+            stats = self.engine.merge()
+            self.merges.append({"label": label, "start": t0, "end": time.perf_counter(),
+                                "files": stats.files_processed, "rows": stats.rows_processed,
+                                "rows_per_s": stats.rows_per_second,
+                                "seconds": stats.duration})
+        except BaseException as exc:
+            self.errors.append(exc)
+
+    def querier(self, tid: int) -> None:
+        import random
+
+        import bloomsearch_tpu_torch as bt
+
+        rng = random.Random(tid)
+        names = list(self.shapes)
+        try:
+            i = tid
+            while not self.stop.is_set():
+                name = names[i % len(names)]
+                i += 1
+                t0 = time.perf_counter()
+                got = self.engine.query_sync(self.shapes[name], timeout=600)
+                with self.lock:
+                    self.queries.append((name, t0, time.perf_counter(),
+                                         [row_ident(r) for r in got]))
+                with self.lock:
+                    durable = list(self.durable_at)
+                if durable:
+                    b = durable[rng.randrange(len(durable))]
+                    k = b * WRITE_BATCH + rng.randrange(min(WRITE_BATCH, len(self.rows)
+                                                            - b * WRITE_BATCH))
+                    t0 = time.perf_counter()
+                    got = self.engine.query_sync(
+                        bt.new_query().token(f"u{self.uid0 + k:08x}").build(), timeout=600)
+                    with self.lock:
+                        self.lookups.append((k, t0, time.perf_counter(),
+                                             [row_ident(r) for r in got]))
+        except BaseException as exc:
+            self.errors.append(exc)
+
+    def run(self) -> None:
+        writer = threading.Thread(target=self.writer, name="phase11-writer")
+        queriers = [threading.Thread(target=self.querier, args=(t,), name=f"phase11-q{t}")
+                    for t in range(WRITE_THREADS)]
+        self.t0 = time.perf_counter()
+        writer.start()
+        for t in queriers:
+            t.start()
+        try:
+            half = len(self.parts) // 2
+            while writer.is_alive() and len(self.durable_at) < half and not self.errors:
+                time.sleep(0.02)
+            merger = threading.Thread(target=self.merge, args=("during ingest",),
+                                      name="phase11-merge")
+            merger.start()
+            writer.join(timeout=900)
+            merger.join(timeout=900)
+            self.merge("after ingest")
+        finally:
+            self.stop.set()
+            writer.join(timeout=900)
+            for t in queriers:
+                t.join(timeout=900)
+        if writer.is_alive() or any(t.is_alive() for t in queriers):
+            raise AssertionError("phase 11 threads did not finish")
+        if self.errors:
+            raise self.errors[0]
+        if len(self.durable_at) != len(self.parts):
+            raise AssertionError(f"{len(self.durable_at)} of {len(self.parts)} batches durable")
+        self.t1 = time.perf_counter()
+
+    def live_part(self, k: int) -> str:
+        return self.parts[k // WRITE_BATCH]
+
+    def check(self, base: dict, final: dict) -> dict:
+        """Every query of the run against the invariants: no row twice;
+        every base row it should match (``base``: shape -> {ident: part})
+        outside partition 00 exactly once and one of 00 at most once; no
+        base row it should not match; every live row a member of the
+        shape's final rows (``final``: shape -> set of idents, after both
+        merges: no partition-00 row is left) or a partition-00 row the
+        writer wrote; every live row outside 00 whose batch was durable
+        before the query started there. A lookup finds its uid's one row
+        (at most that row in 00). -> counts."""
+        uid_of = {f"u{self.uid0 + k:08x}": k for k in range(len(self.rows))}
+        checked = {"queries": 0, "lookups": 0, "rows": 0}
+        live_final = {name: {uid_of[i] for i in idents if i in uid_of}
+                      for name, idents in final.items()}
+        for name, t0, _, idents in self.queries:
+            got = set(idents)
+            if len(got) != len(idents):
+                raise AssertionError(f"{name}: a row twice")
+            want = base.get(name, {})
+            for ident in got:
+                k = uid_of.get(ident)
+                if k is None:
+                    if ident not in want:
+                        raise AssertionError(f"{name}: a base row it does not match ({ident})")
+                elif k not in live_final[name] and self.live_part(k) != EXPIRED_PART:
+                    raise AssertionError(f"{name}: live row {ident} is not one of its rows")
+            missing = [i for i, part in want.items() if part != EXPIRED_PART and i not in got]
+            durable = {b for b, t in self.durable_at.items() if t < t0}
+            missing += [k for k in live_final[name] if k // WRITE_BATCH in durable
+                        and f"u{self.uid0 + k:08x}" not in got]
+            if missing:
+                raise AssertionError(f"{name}: {len(missing)} rows missing, e.g. {missing[:3]}")
+            checked["queries"] += 1
+            checked["rows"] += len(idents)
+        for k, t0, _, idents in self.lookups:
+            uid = f"u{self.uid0 + k:08x}"
+            if idents != [uid] and not (self.live_part(k) == EXPIRED_PART and not idents):
+                raise AssertionError(f"lookup {uid} (partition {self.live_part(k)}, durable "
+                                     f"before it): rows {idents}")
+            checked["lookups"] += 1
+        return checked
+
+    def timings(self) -> dict:
+        """p50/p95 (ms) a shape before, during and after the merge that ran
+        under ingest; queries a second while the writer ran; ingest rows a
+        second (first ingest call to the last batch durable)."""
+        m = self.merges[0]
+        out: dict = {}
+        for name in list(self.shapes) + ["lookup"]:
+            spans = ([(t0, t1) for n, t0, t1, _ in self.queries if n == name] if name != "lookup"
+                     else [(t0, t1) for _, t0, t1, _ in self.lookups])
+            for when, keep in (("before", lambda t: t < m["start"]),
+                               ("during", lambda t: m["start"] <= t < m["end"]),
+                               ("after", lambda t: t >= m["end"])):
+                ms = sorted((t1 - t0) * 1e3 for t0, t1 in spans if keep(t0))
+                if ms:
+                    out.setdefault(name, {})[when] = {
+                        "n": len(ms), "p50_ms": statistics.median(ms),
+                        "p95_ms": ms[min(len(ms) - 1, int(0.95 * len(ms)))]}
+        end = max(self.durable_at.values())
+        during = [t0 for _, t0, t1, _ in self.queries + self.lookups
+                  if self.t_ingest0 <= t0 and t1 <= end]
+        return {"shapes": out, "ingest_rows_per_s": len(self.rows) / (end - self.t_ingest0),
+                "ingest_s": end - self.t_ingest0,
+                "qps_during_writes": len(during) / (end - self.t_ingest0),
+                "queries": len(self.queries), "lookups": len(self.lookups),
+                "merges": [{k: v for k, v in mg.items() if k not in ("start", "end")}
+                           | {"wall_s": mg["end"] - mg["start"]} for mg in self.merges],
+                "seconds": self.t1 - self.t0}
+
+
+def host_rows(host, shapes: dict) -> dict:
+    """Each shape's rows on the host-probe engine -> {shape: {ident: part}}."""
+    return {name: {row_ident(r): r.get("part") for r in host.query_sync(q, timeout=600)}
+            for name, q in shapes.items()}
+
+
+def quiescent_check(engine, host, shapes: dict, uids: list[str], label: str,
+                    want: dict | None = None) -> dict:
+    """Every shape and every uid lookup on the engine against the host-probe
+    engine's rows (``want``: the host's rows from an earlier check of the
+    same store state), each lookup one row -> the host's rows."""
+    import bloomsearch_tpu_torch as bt
+
+    queries = dict(shapes)
+    queries.update({f"uid {u}": bt.new_query().token(u).build() for u in uids})
+    if want is None:
+        want = {name: rowset(host.query_sync(q, timeout=600)) for name, q in queries.items()}
+    for name, q in queries.items():
+        got = rowset(engine.query_sync(q, timeout=600))
+        if got != want[name]:
+            raise AssertionError(f"{label}: {name} rows differ from the host probe's")
+        if name.startswith("uid ") and len(got) > 1:
+            raise AssertionError(f"{label}: {name}: {len(got)} rows")
+    log(f"{label}: {len(shapes)} shapes and {len(uids)} uid lookups equal the host probe's")
+    return want
+
+
+def stream_version_bump(engine, shapes: dict, want: dict, label: str) -> dict:
+    """One more stream mutation between two passes of the shapes, so
+    needles the first pass cached are looked up at a newer stream version:
+    a small batch (rows that match no shape), flushed; a query of it, whose
+    block the engine pins in the background; then every shape again,
+    against the host probe's rows (``want``)."""
+    import bloomsearch_tpu_torch as bt
+
+    cache = engine._row_cache
+    settle_writes(engine)
+    with cache._lock:
+        before = cache._bucket.version
+    engine.ingest_serialized([f'{{"note":"versionbump","uid":"w{i:08x}","part":"01"}}'.encode()
+                              for i in range(1_000)], timeout=600, partition_id="01")
+    engine.flush(timeout=600)
+    if len(engine.query_sync(bt.new_query().token("versionbump").build(), timeout=600)) != 1_000:
+        raise AssertionError(f"{label}: the version-bump batch is not 1,000 rows")
+    settle_writes(engine)
+    with cache._lock:
+        after = cache._bucket.version
+    for name, q in shapes.items():
+        if rowset(engine.query_sync(q, timeout=600)) != want[name]:
+            raise AssertionError(f"{label} after the version bump: {name} rows differ from the "
+                                 "host probe's")
+    settle_writes(engine)
+    log(f"{label}: stream version {before} -> {after} around one more pin; every shape again "
+        "equal to the host probe's")
+    return {"before": before, "after": after}
+
+
+def settle_writes(engine, timeout: float = 600) -> None:
+    """Wait for the background pins and bank warms queries scheduled."""
+    engine.drain_background_pins(timeout=timeout)
+    deadline = time.monotonic() + timeout
+    while True:
+        with engine._warm_lock:
+            if not engine._warming:
+                return
+        if time.monotonic() > deadline:
+            raise AssertionError("background bank warms did not finish")
+        time.sleep(0.01)
+
+
+def writes_memory_bound(columns_published: int, col_unit: int, column: int, group: int,
+                        reserved_chunks: int, max_block_chunks: int, baseline: int) -> dict:
+    """The most device memory a write run may allocate, from the code:
+
+    - superbank (``bloom/bank.py``): no column is evicted (the bank budget
+      holds every column published), so its capacity is at most ``K``, the
+      least ``col_unit`` x 2^k holding every column the run published (base,
+      flushed and merged files: dead columns count until a compaction). A
+      growth allocates the doubled bank beside the old (``_grow``), which a
+      probe snapshot may still hold, and a compaction allocates a new bank
+      beside that (``maybe_compact``): K/2 + K + K columns;
+    - staged groups (``Superbank.stage``): one a loader, at most the query
+      threads, the flush worker and the warm worker at once;
+    - stream (``rowcache.py``): the reservation fixes the matrix and pins
+      past it evict in place, so as phase 9: three matrices (the stream, a
+      compaction's copy, a scan's snapshot), the compaction's int64 index
+      and one upload piece;
+    - what was allocated before the run."""
+    from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES
+
+    K = col_unit
+    while K < columns_published:
+        K *= 2
+    piece = 1 << max(max_block_chunks, 512).bit_length()
+    terms = {
+        "superbank": (K // 2 + 2 * K) * column,
+        "staged_groups": (WRITE_THREADS + 2) * group,
+        "stream": 3 * reserved_chunks * CHUNK_BYTES,
+        "compaction_index": 8 * reserved_chunks,
+        "upload_piece": piece * CHUNK_BYTES,
+        "baseline": baseline,
+    }
+    terms["bound"] = sum(terms.values())
+    terms["K"] = K
+    return terms
+
+
+class PublishedColumns:
+    """Wraps a MetaStore's ``update`` to count the bank columns of every
+    file it publishes."""
+
+    def __init__(self, meta, files):
+        self.columns = sum(g.num_blocks for mf in files for g in mf.metadata.bank_groups)
+        self.group = max(g.size for mf in files for g in mf.metadata.bank_groups)
+        update = meta.update
+
+        def counted(writes, deletes):
+            for op in writes:
+                groups = op.file_metadata.bank_groups
+                self.columns += sum(g.num_blocks for g in groups)
+                self.group = max([self.group] + [g.size for g in groups])
+            return update(writes, deletes)
+
+        meta.update = counted
+
+
+class MeshScanRecorder:
+    """Keeps, for each shape of the sharded scans a mesh row cache makes
+    (``sharded_scan_all_rows`` and ``sharded_scan_segments`` with a mesh),
+    its first call's arguments, to re-run it at the end."""
+
+    def __init__(self):
+        import bloomsearch_tpu_torch.rowcache as rc
+
+        self.rc = rc
+        self.orig = {name: getattr(rc, name) for name in ("sharded_scan_all_rows",
+                                                           "sharded_scan_segments")}
+        self.args: dict[tuple, dict] = {}
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        orig = self.orig
+
+        def keep(key, **args):
+            with self.lock:
+                self.args.setdefault(key, {k: np.array(v, copy=True)
+                                           if isinstance(v, np.ndarray) else v
+                                           for k, v in args.items()})
+
+        def dense(mesh, rows32, needles, lens, *, n_real):
+            keep(("stream", n_real), needles=needles, lens=lens, n_real=n_real)
+            return orig["sharded_scan_all_rows"](mesh, rows32, needles, lens, n_real=n_real)
+
+        def segments(mesh, rows32, seg_starts, needles, lens, *, n_real, seg_chunks):
+            counts = [int(v) for v in np.broadcast_to(seg_chunks, (len(seg_starts),))]
+            keep(("segments", n_real, tuple(counts)), starts=[int(v) for v in seg_starts],
+                 needles=needles, lens=lens, n_real=n_real, seg_chunks=counts)
+            return orig["sharded_scan_segments"](mesh, rows32, seg_starts, needles, lens,
+                                                 n_real=n_real, seg_chunks=seg_chunks)
+
+        self.rc.sharded_scan_all_rows, self.rc.sharded_scan_segments = dense, segments
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.rc, name, fn)
+
+
+def recheck_mesh_scans(dev, mesh, stream: tuple, recorded: dict) -> int:
+    """Each recorded sharded scan shape re-run on the mesh's final stream
+    against the plain version on its logical stream (every requested chunk
+    of a sparse call, every word of a dense one), bit-identical -> shapes."""
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    flat = torch.cat([sh.to(dev) for sh in stream])
+    for key, a in sorted(recorded.items(), key=str):
+        if key[0] == "stream":
+            got = pm.sharded_scan_all_rows(mesh, stream, a["needles"], a["lens"],
+                                           n_real=a["n_real"])
+            want = plain_scan(ks, flat, a["needles"], a["lens"], a["n_real"]).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(f"mesh dense scan {key} differs from the plain version")
+            continue
+        starts, counts = a["starts"], a["seg_chunks"]
+        got, base = pm.sharded_scan_segments(mesh, stream, starts, a["needles"], a["lens"],
+                                             n_real=a["n_real"], seg_chunks=counts)
+        plain = plain_scan(ks, flat, a["needles"], a["lens"], a["n_real"], starts, counts).cpu()
+        read, rounded = ks.segment_layout(starts, counts, flat.shape[0])
+        plain_base = [int(o) + st - r for o, st, r in zip(np.cumsum([0] + rounded[:-1]), starts,
+                                                            read)]
+        mine = mj.requested_bits(got, base, counts)
+        theirs = mj.requested_bits(plain, plain_base, counts)
+        if not all(np.array_equal(x, y) for x, y in zip(mine, theirs)):
+            raise AssertionError(f"mesh sparse scan {key} differs from the plain version")
+    del flat
+    return len(recorded)
+
+
+def write_engine(bt, store, meta, settings: dict, mesh=None):
+    """The phase's serving engine; with ``mesh`` the two modules that
+    resolve ``mesh_devices`` are handed it while the engine is built (as
+    phase 8 does on one card)."""
+    from unittest import mock
+
+    import bloomsearch_tpu_torch.bloom.bank as bank_mod
+    import bloomsearch_tpu_torch.rowcache as rc_mod
+
+    config = engine_config(**settings)
+    if mesh is None:
+        return bt.BloomSearchEngine(config, meta, store)
+
+    def resolve(mesh_devices, device):
+        return mesh
+
+    with mock.patch.object(bank_mod, "mesh_for", resolve), \
+            mock.patch.object(rc_mod, "mesh_for", resolve):
+        return bt.BloomSearchEngine(config, meta, store)
+
+
+def write_part(dev, label: str, src: str, n_files: int, n_rows: int, mesh=None) -> dict:
+    """Steps 1-6 (one card) or 2-5 (``mesh``) of the phase on ``n_files``
+    of the dataset's files and ``n_rows`` live rows -> its readings."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    out: dict = {"label": label, "files": n_files, "rows": n_rows}
+    # Beside the dataset: hardlinks need one file system.
+    directory = tempfile.mkdtemp(prefix="bloomsearch-writes-", dir=os.path.dirname(src))
+    sidecar = tempfile.mkdtemp(prefix="bloomsearch-writes-sidecar-")
+    engine = host = None
+    try:
+        store, meta, files = writes_store(src, n_files, directory)
+        published = PublishedColumns(meta, files)
+        blocks = [b for mf in files for b in mf.metadata.data_blocks]
+        out["base_rows"] = sum(b.rows for b in blocks)
+        out["base_columns"] = published.columns
+        rows, parts = write_rows(n_rows, REFSCALE_UIDS)
+        settings = dict(
+            device=str(dev), probe_backend="device",
+            mesh_devices=1 if mesh is None else mesh.size, bank_cache_bytes=6 << 30,
+            row_cache_bytes=10 << 30, serving_cache_dir=sidecar,
+            ttl_predicate=bt.prefilter_expiry(bt.partition(bt.partition_equals(EXPIRED_PART))),
+            max_buffered_rows=WRITE_FLUSH_ROWS, max_buffered_bytes=512 << 20,
+            max_buffered_time=3600.0)
+        host = bt.BloomSearchEngine(engine_config(probe_backend="host"), meta, store)
+        host.start()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        baseline = torch.cuda.memory_allocated(dev)
+        pk.reset_launch_counts()
+        ks.reset_launch_counts()
+        pm.reset_launch_counts()
+        recorder = ScanRecorder() if mesh is None else MeshScanRecorder()
+        with WriteCounters() as counters, recorder:
+            engine = write_engine(bt, store, meta, settings, mesh)
+            engine.start()
+            counters.attach(engine)
+            if not engine._row_cache.needle_cache_enabled:
+                raise AssertionError("the needle cache is off by default")
+            t0 = time.perf_counter()
+            engine.warmup(block=True)
+            out["warmup_s"] = time.perf_counter() - t0
+            bases = base_uids(store, files)  # before a merge replaces the files
+            shapes = needle_shapes()
+            add_common_shapes(engine, shapes, bases[0])
+            base = host_rows(host, shapes)
+            out["base_shape_rows"] = {name: len(r) for name, r in base.items()}
+            quiet: dict = {}
+            check_shapes(engine, host, shapes, 3 if mesh is not None else 5, quiet)
+            out["quiet_p50_ms"] = {k[len("warm_p50_ms_"):]: v for k, v in quiet.items()
+                                   if k.startswith("warm_p50_ms_")}
+            log(f"{label}: warmup {out['warmup_s']:.3f} s; base rows a shape "
+                f"{out['base_shape_rows']}; quiet warm p50 {out['quiet_p50_ms']}")
+
+            run = WriteRun(engine, shapes, rows, parts, REFSCALE_UIDS)
+            run.run()
+            out["run"] = run.timings()
+            log(f"{label}: run {out['run']}")
+
+            engine.flush(timeout=600)
+            settle_writes(engine)
+            final_shapes = dict(run.shapes)
+            final = {name: set(r) for name, r in host_rows(host, final_shapes).items()}
+            out["checked"] = run.check(base, final)
+            log(f"{label}: every query of the run held: {out['checked']}")
+            rng = np.random.default_rng(3)
+            uids = [f"u{REFSCALE_UIDS + int(k):08x}" for k in
+                    rng.choice(n_rows, WRITE_SAMPLED_UIDS // 2, replace=False)]
+            uids += [bases[int(i)] for i in rng.choice(
+                len(bases), min(WRITE_SAMPLED_UIDS - len(uids), len(bases)), replace=False)]
+            want = quiescent_check(engine, host, final_shapes, uids, f"{label} quiescent")
+            out["version_bump"] = stream_version_bump(engine, final_shapes, want, label)
+            stats = engine.stats()
+            out["counters"] = counters.snapshot()
+            out["stats"] = {"deferred_tombstones": stats["deferred_tombstones"],
+                            "background_pin_failures": stats["background_pin_failures"],
+                            "row_cache": stats["row_cache"],
+                            "superbanks": stats["device"]["superbanks"],
+                            "serving_cache": stats["serving_cache"]}
+            with engine._row_cache._lock:
+                matrix = engine._row_cache._bucket.matrix
+            out["launches"] = {"probe": pk.launch_counts(), "scan": ks.launch_counts(),
+                               "sharded_calls": pm.launch_counts()}
+            probe_shapes, scan_shapes = pk.launch_shapes(), ks.launch_shapes()
+            reserved = engine.stats()["warmup"]["reserved_chunks"]
+            col_unit = 128 * (1 if mesh is None else mesh.size)
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            out["memory_bound"] = writes_memory_bound(
+                published.columns, col_unit, REFSCALE_COLUMN_BYTES, published.group, reserved,
+                max(-(-b.uncompressed_size // 480) for b in blocks), baseline)
+            out["errors"] = list(counters.errors)
+            if mesh is None:
+                engine.stop(timeout=600)
+                engine = None
+                out["restart"] = write_restart(dev, bt, store, meta, settings, sidecar, host,
+                                               final_shapes, uids, want, counters, label)
+        check_write_counters(out, label, mesh is not None)
+        out["probe_shapes"] = len(probe_shapes)
+        out["probe_cases"] = phase_main_shapes(dev, probe_shapes, {})
+        if mesh is None:
+            out["scan_shapes"] = len(scan_shapes)
+            out["scan_cases"] = recheck_scans(ks, matrix, scan_shapes, recorder.args)
+        else:
+            out["scan_shapes"] = recheck_mesh_scans(dev, mesh, matrix, recorder.args)
+        del matrix
+        log(f"{label}: {out['probe_shapes']} probe and {out['scan_shapes']} scan launch shapes "
+            "re-run against their plain versions, bit-identical")
+    finally:
+        if engine is not None:
+            engine.stop(timeout=600)
+        if host is not None:
+            host.stop(timeout=600)
+        shutil.rmtree(directory, ignore_errors=True)
+        shutil.rmtree(sidecar, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_restart(dev, bt, store, meta, settings, sidecar, host, shapes, uids, want,
+                  counters, label) -> dict:
+    """Step 6: the sidecar holds no tombstoned file; an engine restarted
+    from it warms every pinned block from it and answers as before."""
+    out: dict = {"stale_sidecar_entries": sidecar_stale_files(meta, sidecar)}
+    if out["stale_sidecar_entries"]:
+        raise AssertionError(f"{label}: the sidecar holds tombstoned files' entries "
+                             f"{out['stale_sidecar_entries'][:3]}")
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+
+    pk.reset_launch_counts()
+    ks.reset_launch_counts()
+    engine = write_engine(bt, store, meta, settings)
+    engine.start()
+    try:
+        with ScanRecorder() as recorder:
+            counters.attach(engine)
+            t0 = time.perf_counter()
+            engine.warmup(block=True)
+            out["warmup_s"] = time.perf_counter() - t0
+            out["sidecar_hits"] = engine.stats()["serving_cache"]["hits"]
+            if not out["sidecar_hits"]:
+                raise AssertionError(f"{label} restart: no block loaded from the sidecar")
+            quiescent_check(engine, host, shapes, uids, f"{label} restart", want)
+            settle_writes(engine)
+            out["launches"] = {"probe": pk.launch_counts(), "scan": ks.launch_counts()}
+            probe_shapes, scan_shapes = pk.launch_shapes(), ks.launch_shapes()
+            with engine._row_cache._lock:
+                matrix = engine._row_cache._bucket.matrix
+        out["stale_after"] = sidecar_stale_files(meta, sidecar)
+        if out["stale_after"]:
+            raise AssertionError(f"{label} restart: stale sidecar entries {out['stale_after']}")
+        out["probe_shapes"] = len(probe_shapes)
+        phase_main_shapes(dev, probe_shapes, {})
+        out["scan_shapes"] = len(scan_shapes)
+        recheck_scans(ks, matrix, scan_shapes, recorder.args)
+        del matrix
+    finally:
+        engine.stop(timeout=600)
+    log(f"{label} restart: {out}; its {out['probe_shapes']} probe and {out['scan_shapes']} scan "
+        "launch shapes re-run against their plain versions, bit-identical")
+    return out
+
+
+def sidecar_stale_files(meta, sidecar: str) -> list[str]:
+    """Sidecar entries of files the MetaStore no longer lists."""
+    from bloomsearch_tpu_torch.servingcache import ServingStateCache
+
+    prefix = ServingStateCache(sidecar)._prefix
+    live = {prefix(mf.pointer) for mf in meta.get_maybe_files_for_query(None)}
+    return sorted(n for n in os.listdir(sidecar) if n.endswith(".srv")
+                  and n.split("-")[0] not in live)
+
+
+def check_write_counters(out: dict, label: str, mesh: bool) -> None:
+    c, stats = out["counters"], out["stats"]
+    log(f"{label}: counters {c}; stats {stats}; launches {out['launches']}; peak device "
+        f"memory {out['peak_bytes']} against the bound {out['memory_bound']['bound']} "
+        f"({out['memory_bound']})")
+    rc = stats["row_cache"]
+    # A mesh's capacity unit (128 columns a shard) holds its part's columns:
+    # its superbank never grows; the one-card part's does.
+    must = {"warm-on-flush inserts": c["warm_on_flush_inserts"],
+            "superbank growths": 1 if mesh else c["superbank_growths"],
+            "segment removals by tombstone": c["bank_tombstone_segments"],
+            "superbank compactions": c["superbank_compactions"],
+            "row-cache invalidate_file removals": c["stream_tombstone_blocks"],
+            "stream compactions": rc["compactions"],
+            "deferred tombstones applied by a draining query":
+                min(c["tombstones_deferred"], c["tombstones_applied_by_queries"],
+                    c["max_deferred_tombstones"]),
+            "needle-cache hits": c["needle_cache_hits"],
+            "needle-cache version misses": c["needle_cache_version_misses"]}
+    for name, n in must.items():
+        if n <= 0:
+            raise AssertionError(f"{label}: no {name}")
+    for name, n in (("logged warm-on-flush failures", c["warm_on_flush_failures"]),
+                    ("ERROR log records", c["error_logs"]),
+                    ("uncaught thread exceptions", c["thread_exceptions"]),
+                    ("background pin failures", stats["background_pin_failures"]),
+                    ("tombstones still deferred", stats["deferred_tombstones"])):
+        if n:
+            raise AssertionError(f"{label}: {n} {name}: {out['errors'][:3]}")
+    if c["bank_churn_errors"] > c["device_probe_calls"]:
+        raise AssertionError(f"{label}: more degrades to host probing than device probes")
+    for counter in ("reduce_and", "clauses"):
+        if out["launches"]["probe"][counter] < 1:
+            raise AssertionError(f"{label}: no {counter} probe launch")
+    if out["launches"]["scan"]["stream"] + out["launches"]["scan"]["segments"] < 1:
+        raise AssertionError(f"{label}: no scan launch")
+    if out["peak_bytes"] > out["memory_bound"]["bound"]:
+        raise AssertionError(f"{label}: peak device memory {out['peak_bytes']} exceeds the "
+                             f"bound {out['memory_bound']['bound']}")
+
+
+def phase_writes(dev, target_mb: int, seed: int) -> dict:
+    """Writes under serving: live ingest with warm-on-flush inserts, merges
+    with TTL expiry and deferred tombstones, stream invalidation and the
+    default needle cache, under queries, on one card (``WRITE_FILES`` of
+    the refscale files, ``WRITE_ROWS`` live rows, then a restart from the
+    sidecar) and on a 4-shard mesh (a quarter of the rows over
+    ``WRITE_MESH_FILES`` files)."""
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    src = refscale_dataset(target_mb, seed)
+    log(f"writes under serving on {card_line()}")
+    one = write_part(dev, "writes", src, WRITE_FILES, WRITE_ROWS)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_SHARDS:
+        mesh = pm.Mesh(tuple(torch.device("cuda", i) for i in range(MESH_SHARDS)))
+    else:
+        mesh = pm.Mesh((dev,) * MESH_SHARDS)
+    sharded = write_part(dev, f"writes on a {MESH_SHARDS}-shard mesh over "
+                         f"{len(mesh.distinct_devices())} card(s)", src, WRITE_MESH_FILES,
+                         WRITE_ROWS // 4, mesh=mesh)
+    return {"one_card": one, "mesh": sharded}
+
+
+def writes_record(out: dict) -> dict:
+    """The phase's numbers for the kernels line."""
+    def part(p: dict) -> dict:
+        keep = ("files", "rows", "base_rows", "base_columns", "warmup_s", "quiet_p50_ms", "run",
+                "checked", "counters", "launches", "peak_bytes", "memory_bound",
+                "probe_shapes", "scan_shapes", "restart")
+        rec = {k: p[k] for k in keep if k in p}
+        rec["row_cache"] = p["stats"]["row_cache"]
+        rec["background_pin_failures"] = p["stats"]["background_pin_failures"]
+        return rec
+
+    return {"card": card_line(), "one_card": part(out["one_card"]), "mesh": part(out["mesh"])}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--target-mb", type=int, default=1600,
@@ -3029,6 +4055,9 @@ def main(argv=None) -> int:
     tools = phase_tools(dev, args.target_mb, args.seed)
     done("tools")
     log(json.dumps({"tools": {k: v for k, v in tools.items() if k != "entry"}}))
+    writes = writes_record(phase_writes(dev, args.target_mb, args.seed))
+    done("writes")
+    log(json.dumps({"writes": writes}))
     for name, (counter, replaces) in SCAN_MODES.items():
         if counter not in scan_cases:
             raise AssertionError(f"{name} was not launched on the serving path")
@@ -3067,7 +4096,7 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main path")
-    log(json.dumps({"kernels": kernels, "beyond_budget": beyond}))
+    log(json.dumps({"kernels": kernels, "beyond_budget": beyond, "writes": writes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
