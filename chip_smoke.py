@@ -181,19 +181,52 @@ Phases, in order; any failure raises and the script exits non-zero:
    device memory under ``writes_memory_bound``. Then the same run on a
    4-shard mesh (four cards when four are visible, else cuda:0 four
    times) at a quarter of the rows over 2 files, each sharded scan shape
-   re-run against the plain version on the mesh's logical stream.
+   re-run against the plain version on the mesh's logical stream;
+12. scale-out over ``serve`` peers: (a) the 24 refscale files hardlinked
+   under ``data/`` of a ``LocalDirObjectStore`` bucket beside their
+   ``.etag`` sidecars (a put where a link fails), the manifest written by
+   one ``ObjectStoreMetaStore.update`` from their footers; (b) peers started
+   as children through the entry point, one per visible card
+   (``CUDA_VISIBLE_DEVICES``) when two or more are visible, else two on the
+   one card: each is this script in peer mode (``--peer RECORD`` and
+   ``serve``'s arguments: ``--object-dir``, ``--registry``, ``--peer-id``,
+   ``--capacity`` 2 then 1, ``--row-cache-mb 10240``, ``--probe-backend
+   device``), which installs phase 6 and 7's launch recorders and phase 9's
+   counters and calls ``bloomsearch_tpu_torch.serve.main``; a peer is cold
+   (no warmup), so it sparse-probes through ranged reads of the bucket and
+   warms and pins in the background, with the host shadow on; (c) through
+   ``CapacityScatterCoordinator`` in this process: every phase-5/7 shape
+   cold once, warm passes until one is no more than 10% faster than the
+   last, 7 samples a shape, 16 threads x 8 mixed queries; (d) an in-process
+   engine on the card takes the merge lease and merges two files (~1M rows)
+   while 8 coordinator threads query; (e) SIGKILL to the last peer during
+   a 16-thread burst, then every shape on the survivors; (f) two ``serve
+   --dir`` peers over alternate files (shadow-free) behind
+   ``ScatterGatherCoordinator``, every shape and 16 threads. Every row set
+   is held to a host-probe engine's on the same bucket (for (f), on the 24
+   files): a query returns exactly those rows, or surfaces an error with a
+   subset of them and no row twice (counted by kind). Before its engine
+   stops (SIGTERM) each peer writes its counters (launches, sparse cold
+   probes, completed bank warms and pins, residency, bytes it still holds
+   of merged-away files, peak device memory, ERROR log records and thread
+   exceptions) and re-runs every probe and scan launch shape it made
+   against the plain version; every surviving peer must show K1e launches,
+   K2/K2s launches where it scanned, no ERROR record or thread exception,
+   and a peak under ``peer_memory_bound``.
 
 The line before the last is the kernels' JSON record, with phase 9's
-numbers under ``beyond_budget`` and phase 11's under ``writes``; the last
-line is ``{"ok": true, "device": {...}}``.
+numbers under ``beyond_budget``, phase 11's under ``writes`` and phase 12's
+under ``scale_out``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1354,10 +1387,13 @@ class ScanRecorder:
             setattr(self.rc, name, fn)
 
 
-def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> dict:
+def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict,
+                  grown: bool = False) -> dict:
     """The scan kernel against its plain version on the resident stream at
     every shape the serving engine launched, with that shape's first
     launch's needles and starts; each mode's most launched shape is timed.
+    ``grown``: the stream had no reservation and grew after some launches,
+    so a dense launch over fewer rows is re-run on the stream's first rows.
     Returns {launch counter: that shape's case}."""
     top = {}
     for key, n in launched.items():
@@ -1367,13 +1403,16 @@ def recheck_scans(ks, matrix: torch.Tensor, launched: dict, recorded: dict) -> d
     for key in sorted(launched):
         mode, G, n_real, n_segs, counts = key
         args = recorded[key]
-        if mode == "stream" and (G != matrix.shape[0] or counts != ()):
+        rows = matrix
+        if mode == "stream" and grown and counts == () and G < matrix.shape[0]:
+            rows = matrix[:G]
+        if mode == "stream" and (G != rows.shape[0] or counts != ()):
             raise AssertionError(f"dense launch {key}: want dense mode over the stream's "
-                                 f"{matrix.shape[0]} rows")
+                                 f"{rows.shape[0]} rows")
         timed_shape = key == top[mode]
         segments = mode == "segments"
         case = scan_case(
-            ks, matrix, args["needles"], args["lens"], n_real,
+            ks, rows, args["needles"], args["lens"], n_real,
             starts=args["starts"] if segments else None,
             seg_chunks=args["seg_chunks"] if segments else 0,
             need_chunks=sum(args["seg_chunks"]) if segments else None,
@@ -2512,7 +2551,7 @@ def beyond_budgets(files) -> dict:
 
 
 def memory_bound(budgets: dict, reserved_chunks: int, max_block_chunks: int,
-                 baseline: int) -> dict:
+                 baseline: int, bank_columns: int = 128 + 256 + 128) -> dict:
     """The most device memory the phase may allocate, from the code:
 
     - superbank (``bloom/bank.py``): the budget holds one 128-column unit,
@@ -2528,13 +2567,15 @@ def memory_bound(budgets: dict, reserved_chunks: int, max_block_chunks: int,
       (``_maybe_compact``), and a scan snapshot may still hold the one
       before, so three matrices at once; one upload piece (a pow2 of at
       most a block's chunks, ``pin``);
-    - what was allocated before the phase (``baseline``)."""
+    - what was allocated before the phase (``baseline``).
+
+    ``bank_columns``: a peer's bank (phase 12) has its own growth bound."""
     from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES
 
     column = budgets["column_bytes"]
     piece = 1 << max(max_block_chunks, 512).bit_length()
     terms = {
-        "superbank": (128 + 256 + 128) * column,
+        "superbank": bank_columns * column,
         "staged_group": budgets["group_bytes"],
         "stream": 3 * reserved_chunks * CHUNK_BYTES,
         "compaction_index": 8 * reserved_chunks,
@@ -3997,7 +4038,691 @@ def writes_record(out: dict) -> dict:
     return {"card": card_line(), "one_card": part(out["one_card"]), "mesh": part(out["mesh"])}
 
 
+# -- phase 12: the scale-out over serve peers --------------------------------------
+
+SCALE_OUT_ROW_CACHE_MB = 10240  # the serving cell's row_cache_bytes
+SCALE_OUT_THREADS = 16
+SCALE_OUT_MERGE_FILES = 2  # about 1M rows: two refscale files
+SCALE_OUT_MERGE_THREADS = 8
+SCALE_OUT_WARM_PASSES = 10
+PEER_START_S = 300.0
+PEER_STOP_S = 600.0
+
+
+class ListingView:
+    """A MetaStore that lists only ``pointers`` and publishes to ``meta``, so
+    the merging engine merges just those files; the lease is ``meta``'s."""
+
+    def __init__(self, meta, pointers):
+        self.meta, self.pointers = meta, set(pointers)
+
+    def get_maybe_files_for_query(self, prefilter):
+        return [mf for mf in self.meta.get_maybe_files_for_query(prefilter)
+                if mf.pointer in self.pointers]
+
+    def update(self, writes, deletes):
+        self.meta.update(writes, deletes)
+
+    def acquire_merge_lease(self, *args, **kwargs):
+        return self.meta.acquire_merge_lease(*args, **kwargs)
+
+
+class PeerWatch:
+    """ERROR records of the package's loggers and exceptions any thread left
+    uncaught, counted in a peer process."""
+
+    def __init__(self):
+        import logging
+
+        watch = self
+        self.errors: list[str] = []
+        self.lock = threading.Lock()
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                with watch.lock:
+                    watch.errors.append(f"log {record.name}: {record.getMessage()}")
+
+        self.handler = Handler(level=logging.ERROR)
+
+    def __enter__(self):
+        import logging
+
+        logging.getLogger("bloomsearch_tpu_torch").addHandler(self.handler)
+        self.excepthook = threading.excepthook
+
+        def hook(args):
+            with self.lock:
+                self.errors.append(f"thread {args.thread.name}: {args.exc_value!r}")
+            self.excepthook(args)
+
+        threading.excepthook = hook
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("bloomsearch_tpu_torch").removeHandler(self.handler)
+        threading.excepthook = self.excepthook
+
+
+def peer_main(record: str, serve_argv: list[str]) -> int:
+    """Phase 12's child: one ``serve`` peer on the card. The launch recorders
+    of phases 6 and 7 (``kernels.probe.launch_shapes``, ``ScanRecorder``) and
+    phase 9's counters are installed, then ``bloomsearch_tpu_torch.serve.main``
+    runs with ``serve_argv``; before its engine stops (SIGTERM) the peer
+    writes its counters to ``record`` and re-runs every launch shape it made
+    against the plain version (``peer_record``)."""
+    if not torch.cuda.is_available():
+        log("peer: no CUDA device visible")
+        return 2
+    import traceback
+
+    import bloomsearch_tpu_torch.engine as em
+    from bloomsearch_tpu_torch import serve
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+
+    dev = torch.device("cuda", 0)
+    torch.empty(1, device=dev)  # the allocator's statistics exist from its first allocation
+    pk.reset_launch_counts()
+    ks.reset_launch_counts()
+    with PeerWatch() as watch, BudgetCounters() as budget, ScanRecorder() as recorder:
+        budget.after_warmup = True  # a peer never warms up: each yielding warm is a background one
+
+        class PeerEngine(em.BloomSearchEngine):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                budget.attach(self._device_backend)
+                torch.cuda.reset_peak_memory_stats(dev)
+                self.smoke_baseline = torch.cuda.memory_allocated(dev)
+
+            def stop(self, timeout=None):
+                try:
+                    out = peer_record(self, dev, budget, recorder, watch)
+                except BaseException as exc:
+                    out = {"error": f"{exc!r}\n{traceback.format_exc()}"}
+                with open(record, "w") as fh:
+                    json.dump(out, fh)
+                return super().stop(timeout=timeout)
+
+        serve.BloomSearchEngine = PeerEngine
+        serve.main(serve_argv)
+    return 0
+
+
+def peer_record(engine, dev, budget, recorder, watch) -> dict:
+    """A peer's counters, read first (its launches, sparse cold probes,
+    completed bank warms and pins, residency, the bytes it still holds of
+    files no longer listed, its peak device memory), then every probe and
+    scan launch shape it made re-run against the plain version."""
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = engine.stats()
+    backend, cache = engine._device_backend, engine._row_cache
+    listed = {mf.pointer for mf in engine.meta_store.get_maybe_files_for_query(None)}
+    with backend._lock:
+        superbank_bytes = sum(sb.nbytes for sb in backend._superbanks.values())
+        stale_bytes = 0
+        for pointer, segs in backend._by_file.items():
+            if pointer not in listed:
+                for mk, seg_key in segs:
+                    sb = backend._superbanks[mk]
+                    stale_bytes += sb.segments[seg_key][1] * sb.num_rows * 4
+    out = {
+        "peak_bytes": peak, "baseline_bytes": engine.smoke_baseline,
+        "bank_cache_bytes": engine.config.bank_cache_bytes,
+        "row_cache_bytes": engine.config.row_cache_bytes,
+        "launches": {"probe": pk.launch_counts(), "scan": ks.launch_counts()},
+        "budget": budget.snapshot(), "superbank_bytes": superbank_bytes,
+        "stale_superbank_bytes": stale_bytes,
+        "background_pin_failures": stats["background_pin_failures"],
+        "errors": list(watch.errors),
+        # The engine's own host spans (ms), median over its last queries.
+        "spans_ms": {k[:-2]: round(statistics.median(t.get(k, 0.0) for t in
+                                                     stats["last_query_timings"]) * 1e3, 3)
+                     for k in ("plan_s", "prescan_s", "blocks_s", "total_s")}
+        if stats["last_query_timings"] else {},
+    }
+    matrix = None
+    if cache is not None:
+        from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES
+
+        with cache._lock:
+            matrix = cache._bucket.matrix
+            stale = [blk for key, blk in cache._blocks.items() if key[0] not in listed]
+        out["host_shadow"] = cache.host_shadow
+        out["row_cache"] = stats["row_cache"]
+        out["stale_stream_bytes"] = sum(blk.num_chunks for blk in stale) * CHUNK_BYTES
+        out["stale_shadow_bytes"] = sum(blk.host_nbytes for blk in stale)
+    probe_shapes, scan_shapes = pk.launch_shapes(), ks.launch_shapes()
+    out["rechecked"] = {"probe_shapes": len(probe_shapes), "scan_shapes": len(scan_shapes)}
+    phase_main_shapes(dev, probe_shapes, {})
+    if scan_shapes:
+        recheck_scans(ks, matrix, scan_shapes, recorder.args, grown=True)
+    log(f"peer: {len(probe_shapes)} probe and {len(scan_shapes)} scan launch shapes re-run "
+        "against their plain versions, bit-identical")
+    return out
+
+
+def scale_out_bucket(cache: str, directory: str) -> tuple:
+    """(a) the refscale files as objects under ``data/`` of a LocalDirObjectStore
+    (hardlinks beside their ``.etag`` sidecars; a put where linking fails), the
+    manifest written with one ``ObjectStoreMetaStore.update`` from the files'
+    footers -> (client, files, hardlinked count)."""
+    import uuid
+
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch.stores import WriteOperation
+
+    files = bt.FileSystemDataStore(cache).get_maybe_files_for_query(None)
+    client = bt.LocalDirObjectStore(directory)
+    writes, linked = [], 0
+    for mf in files:
+        path = mf.pointer.decode("utf-8")
+        key = f"data/{os.path.basename(path)}"
+        dest = os.path.join(directory, key)
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        try:
+            os.link(path, dest)
+        except OSError:
+            with open(path, "rb") as fh:
+                client.put(key, fh.read())
+        else:
+            with open(dest + ".etag", "w") as fh:  # the data first, its etag last
+                fh.write(uuid.uuid4().hex)
+            linked += 1
+        writes.append(WriteOperation(file_metadata=mf.metadata, file_pointer=key.encode(),
+                                     file_size=mf.size))
+    bt.ObjectStoreMetaStore(client).update(writes, [])
+    return client, files, linked
+
+
+def start_peer(root: str, name: str, serve_argv: list[str], card) -> dict:
+    """A ``chip_smoke.py --peer`` child (``card``: its one visible card, or
+    None to share the card the parent sees) -> its handle."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    record = os.path.join(root, f"{name}.json")
+    log_path = os.path.join(root, f"{name}.log")
+    env = dict(os.environ)
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = str(card)
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--peer", record, *serve_argv],
+            cwd=here, stdout=fh, stderr=subprocess.STDOUT, env=env)
+    return {"name": name, "proc": proc, "record": record, "log": log_path, "card": card}
+
+
+def peer_log_tail(peer: dict, n: int = 30) -> str:
+    with open(peer["log"], errors="replace") as fh:
+        return "".join(fh.readlines()[-n:])
+
+
+def wait_serving(peers: list[dict]) -> None:
+    """Each peer's ``serving queries on HOST:PORT`` line, into ``peer["address"]``."""
+    deadline = time.monotonic() + PEER_START_S
+    for peer in peers:
+        while "address" not in peer:
+            with open(peer["log"], errors="replace") as fh:
+                for line in fh:
+                    if line.startswith("serving queries on "):
+                        host, port = line.strip().rsplit(" ", 1)[1].rsplit(":", 1)
+                        peer["address"] = (host, int(port))
+            if "address" in peer:
+                break
+            if peer["proc"].poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"peer {peer['name']} failed to start "
+                                     f"(exit {peer['proc'].poll()}):\n{peer_log_tail(peer)}")
+            time.sleep(0.2)
+    log(f"scale-out: peers serving at {[p['address'] for p in peers]}")
+
+
+def stop_peers(peers: list[dict]) -> dict:
+    """SIGTERM each live peer, wait, and read its record -> {name: record}."""
+    for peer in peers:
+        if peer["proc"].poll() is None:
+            peer["proc"].send_signal(signal.SIGTERM)
+    records = {}
+    for peer in peers:
+        try:
+            peer["proc"].wait(timeout=PEER_STOP_S)
+        except subprocess.TimeoutExpired:
+            peer["proc"].kill()
+            peer["proc"].wait()
+            raise AssertionError(f"peer {peer['name']} did not stop:\n{peer_log_tail(peer)}")
+        if peer.get("killed"):
+            continue
+        if peer["proc"].returncode != 0 or not os.path.exists(peer["record"]):
+            raise AssertionError(f"peer {peer['name']} exited {peer['proc'].returncode} "
+                                 f"without its record:\n{peer_log_tail(peer)}")
+        with open(peer["record"]) as fh:
+            records[peer["name"]] = json.load(fh)
+        if "error" in records[peer["name"]]:
+            raise AssertionError(f"peer {peer['name']}: {records[peer['name']]['error']}")
+    return records
+
+
+def collect(coord, query, timeout: float = 600) -> tuple[list, list]:
+    """One coordinator query -> (rows, errors)."""
+    import queue
+
+    result_q, error_q = queue.Queue(), queue.Queue()
+    coord.query(query, result_q, error_q)
+    rows, deadline = [], time.monotonic() + timeout
+    while True:
+        item = result_q.get(timeout=max(0.0, deadline - time.monotonic()))
+        if item is None:
+            break
+        rows.append(item)
+    errors = []
+    while not error_q.empty():
+        errors.append(error_q.get_nowait())
+    return rows, errors
+
+
+def error_kind(exc: BaseException) -> str:
+    """An error's type, and for a peer's error the type it reported."""
+    import re
+
+    inner = re.search(r": (\w+(?:Error|Exception))\(", str(exc))
+    return type(exc).__name__ + (f"/{inner.group(1)}" if inner else "")
+
+
+def held(rows: list, errors: list, want: list[str], label: str) -> str:
+    """The coordinator's contract for one query: no row twice, no row the
+    host probe does not return; with no error exactly the host probe's rows.
+    -> "exact", or the first error's kind."""
+    got = rowset(rows)
+    if len(set(got)) != len(got):
+        raise AssertionError(f"{label}: a row delivered twice")
+    if not errors:
+        if got != want:
+            raise AssertionError(f"{label}: {len(got)} rows and no error, the host probe "
+                                 f"returns {len(want)}")
+        return "exact"
+    if not set(got) <= set(want):
+        raise AssertionError(f"{label}: a row the host probe does not return")
+    return error_kind(errors[0])
+
+
+class AttemptCounter:
+    """Counts a CapacityScatterCoordinator's snapshot attempts: one per query
+    plus one per stale-snapshot retry."""
+
+    def __init__(self, coord):
+        self.n = 0
+        self.lock = threading.Lock()
+        attempt = coord._query_attempt
+
+        def counted(*args, **kwargs):
+            with self.lock:
+                self.n += 1
+            return attempt(*args, **kwargs)
+
+        coord._query_attempt = counted
+
+
+def scale_out_burst(coord, shapes: dict, want: dict, threads: int, label: str,
+                    per_thread: int = 8, until=None, on_start=None) -> dict:
+    """``threads`` coordinator threads of mixed shapes, ``per_thread`` each (or,
+    with ``until``, until it is set), each held to ``held`` -> outcomes by
+    kind, p50 of the exact queries and qps."""
+    names = list(shapes)
+    outcomes: dict[str, int] = {}
+    lat: list[float] = []
+    errors: list[BaseException] = []
+    lock = threading.Lock()
+    started = threading.Event()
+
+    def worker(tid: int) -> None:
+        try:
+            i = 0
+            while i < per_thread if until is None else i == 0 or not until.is_set():
+                name = names[(tid + i) % len(names)]
+                started.set()
+                t0 = time.perf_counter()
+                rows, errs = collect(coord, shapes[name])
+                ms = (time.perf_counter() - t0) * 1e3
+                kind = held(rows, errs, want[name], f"{label} {name}")
+                with lock:
+                    outcomes[kind] = outcomes.get(kind, 0) + 1
+                    if kind == "exact":
+                        lat.append(ms)
+                i += 1
+        except BaseException as exc:  # re-raised on the main thread
+            errors.append(exc)
+
+    pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    if on_start is not None:
+        started.wait(60)
+        on_start()
+    for t in pool:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in pool):
+        raise AssertionError(f"{label}: queries did not finish")
+    n = sum(outcomes.values())
+    out = {"queries": n, "outcomes": outcomes, "qps": n / wall,
+           "p50_ms": statistics.median(lat) if lat else None}
+    log(f"scale-out {label}: {out}")
+    return out
+
+
+def check_every_shape(coord, shapes: dict, want: dict, label: str) -> dict:
+    """Each shape once, its rows equal to the host probe's -> ms a shape."""
+    out = {}
+    for name, query in shapes.items():
+        t0 = time.perf_counter()
+        rows, errors = collect(coord, query)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        if errors or rowset(rows) != want[name]:
+            raise AssertionError(f"{label} {name}: {len(rows)} rows, errors {errors}; the "
+                                 f"host probe returns {len(want[name])}")
+    return out
+
+
+def peer_memory_bound(record: dict, files: list) -> dict:
+    """``memory_bound`` for one peer, from the code, over every file the peer
+    could have loaded (the bucket's listings over the phase; a peer never
+    tombstones, so a merged-away file stays until evicted):
+
+    - superbank: its bank doubles from 128 columns to the least 128 x 2^k
+      holding every listed group (below the 2 GiB ``bank_cache_bytes``
+      default at refscale, so nothing is evicted); the growth copy beside the
+      old bank and a probe snapshot of the one before it;
+    - one staged group: a group is larger than ``engine.SPARSE_BANK_BYTES``,
+      so queries sparse-probe it and only the one warm thread loads it;
+    - stream: a peer never warms up, so ``reserve`` never fixes it; a pin
+      grows the matrix to at most twice what it needs and never past
+      the byte budget left by the host shadow (``pin``), and holds no dead
+      chunk (nothing is tombstoned or evicted under the budget): at most
+      twice every listed block's chunks, three matrices at once (the
+      growth copy, a scan snapshot);
+    - what the peer had allocated when its engine was built."""
+    from bloomsearch_tpu_torch.rowcache import CHUNK_BYTES, STREAM_STRIDE
+
+    groups = [g for mf in files for g in mf.metadata.bank_groups]
+    column = 3 * ((groups[0].m_bits + 31) // 32) * 4
+    columns = sum(g.num_blocks for g in groups)
+    cap = 128
+    while cap < columns:
+        cap *= 2
+    blocks = [-(-max(b.uncompressed_size, 1) // STREAM_STRIDE)
+              for mf in files for b in mf.metadata.data_blocks]
+    chunks = min(2 * (sum(blocks) + max(blocks) + 512),
+                 record["row_cache_bytes"] // CHUNK_BYTES)
+    budgets = {"column_bytes": column,
+               "group_bytes": max(g.num_blocks for g in groups) * column}
+    return memory_bound(budgets, chunks, max(blocks), record["baseline_bytes"],
+                        bank_columns=cap // 2 + cap + cap // 2)
+
+
+def check_peer_records(records: dict, files: list, killed: set) -> dict:
+    """(g) for each peer that was not killed: K1e launched, K2/K2s where it
+    scanned, no ERROR log or thread exception, no background pin failure,
+    the peak under its bound -> each peer's summary."""
+    out = {}
+    for name, rec in records.items():
+        if name in killed:
+            continue
+        probe, scan = rec["launches"]["probe"], rec["launches"]["scan"]
+        k1e = probe["pack"] + probe["reduce_and"] + probe["clauses"]
+        if k1e < 1:
+            raise AssertionError(f"peer {name}: no K1e launch")
+        scanned = rec.get("row_cache", {}).get("scan_launches", 0)
+        if scanned and scan["stream"] + scan["segments"] < 1:
+            raise AssertionError(f"peer {name}: scanned with no K2/K2s launch")
+        if rec["errors"]:
+            raise AssertionError(f"peer {name}: {rec['errors']}")
+        if rec["background_pin_failures"]:
+            raise AssertionError(f"peer {name}: a background pin failed")
+        bound = peer_memory_bound(rec, files)
+        if rec["peak_bytes"] > bound["bound"]:
+            raise AssertionError(f"peer {name}: peak device memory {rec['peak_bytes']} exceeds "
+                                 f"the bound {bound['bound']} ({bound})")
+        out[name] = {k: rec[k] for k in rec if k not in ("errors",)}
+        out[name]["memory_bound"] = bound["bound"]
+        log(f"peer {name}: launches {rec['launches']}, budget counters {rec['budget']}, "
+            f"row cache {rec.get('row_cache')}, host_shadow {rec.get('host_shadow')}, "
+            f"stale superbank {rec['stale_superbank_bytes']} bytes, stale stream "
+            f"{rec.get('stale_stream_bytes')} bytes, peak {rec['peak_bytes']} under "
+            f"{bound['bound']}; shapes re-run bit-identical {rec['rechecked']}")
+    return out
+
+
+def serve_argv(source: list[str], peer_id=None, capacity=None) -> list[str]:
+    argv = [*source, "--port", "0", "--row-cache-mb", str(SCALE_OUT_ROW_CACHE_MB),
+            "--probe-backend", "device"]
+    if peer_id is not None:
+        argv += ["--registry", "--peer-id", peer_id, "--capacity", str(capacity)]
+    return argv
+
+
+def phase_scale_out(dev, target_mb: int, seed: int, serving_p50: dict | None = None) -> dict:
+    """Phase 12: ``serve`` peers on the card behind both coordinators, every
+    row held to a host-probe engine's (module docstring)."""
+    import bloomsearch_tpu_torch as bt
+    import bloomsearch_tpu_torch.parallel as tpar
+
+    cache = refscale_dataset(target_mb, seed)
+    root = tempfile.mkdtemp(prefix="bloomsearch-scaleout-", dir=os.path.dirname(cache))
+    n_cards = torch.cuda.device_count()
+    n_peers = n_cards if n_cards >= 2 else 2
+    out: dict = {"card": card_line(), "peers": n_peers, "cards": n_cards}
+    peers: list[dict] = []
+    host = merger = None
+    t_phase = time.perf_counter()
+    try:
+        # (a) the bucket
+        client, files, linked = scale_out_bucket(cache, os.path.join(root, "bucket"))
+        meta = bt.ObjectStoreMetaStore(client)
+        listings = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            meta.get_maybe_files_for_query(None)
+            listings.append((time.perf_counter() - t0) * 1e3)
+        # What every coordinator query and every peer's plan reads and parses.
+        out["bucket"] = {"files": len(files), "hardlinked": linked,
+                         "manifest_bytes": client.head("meta/manifest.json")[0],
+                         "listing_ms": statistics.median(listings[1:])}
+        log(f"scale-out: bucket {out['bucket']}")
+        host = bt.BloomSearchEngine(engine_config(probe_backend="host"), meta,
+                                    bt.ObjectStoreDataStore(client))
+        host.start()
+
+        # (b) the peers, through the entry point
+        bucket = os.path.join(root, "bucket")
+        for i in range(n_peers):
+            peers.append(start_peer(root, f"p{i}", serve_argv(
+                ["--object-dir", bucket], f"p{i}", 2 if i == 0 else 1),
+                i if n_cards >= 2 else None))
+        wait_serving(peers)
+        registry = tpar.PeerRegistry(client)
+        deadline = time.monotonic() + PEER_START_S
+        while len({p.peer_id for p in registry.live_peers()}) < n_peers:
+            if time.monotonic() > deadline:
+                raise AssertionError("peers never all registered")
+            time.sleep(0.1)
+        out["start_s"] = time.perf_counter() - t_phase
+        coord = tpar.CapacityScatterCoordinator(bt.ObjectStoreMetaStore(client), registry)
+        attempts = AttemptCounter(coord)
+
+        # (c) queries: cold, warm, 16 threads
+        shapes = needle_shapes()
+        add_common_shapes(host, shapes)
+        want = {name: rowset(host.query_sync(q, timeout=600)) for name, q in shapes.items()}
+        out["cold_ms"] = check_every_shape(coord, shapes, want, "cold")
+        log(f"scale-out cold first query a shape (ms): {out['cold_ms']}")
+        passes, prev = [], None
+        for _ in range(SCALE_OUT_WARM_PASSES):
+            t0 = time.perf_counter()
+            check_every_shape(coord, shapes, want, "warm pass")
+            passes.append(time.perf_counter() - t0)
+            if prev is not None and passes[-1] >= 0.9 * prev:
+                break  # no pass 10% faster than the one before: the warms have landed
+            prev = passes[-1]
+        out["warm_passes_s"] = passes
+        samples = {name: [] for name in shapes}
+        for _ in range(7):
+            for name, ms in check_every_shape(coord, shapes, want, "warm").items():
+                samples[name].append(ms)
+        out["warm_p50_ms"] = {name: statistics.median(v) for name, v in samples.items()}
+        log(f"scale-out warm p50 a shape (ms) {out['warm_p50_ms']}; phase 7's one-card "
+            f"serving p50 {serving_p50}")
+        out["burst"] = scale_out_burst(coord, shapes, want, SCALE_OUT_THREADS, "16 threads")
+        if out["burst"]["outcomes"] != {"exact": out["burst"]["queries"]}:
+            raise AssertionError(f"16 threads: {out['burst']['outcomes']}")
+
+        # (d) a merge under the coordinator
+        listing = sorted(meta.get_maybe_files_for_query(None), key=lambda mf: mf.pointer)
+        merged = [mf.pointer for mf in listing[:SCALE_OUT_MERGE_FILES]]
+        # Two refscale blocks of a partition merge only within 32 MB row groups.
+        merger = bt.BloomSearchEngine(
+            dataclasses.replace(engine_config(device=str(dev), probe_backend="device",
+                                              mesh_devices=1),
+                                max_row_group_bytes=32 * 1024 * 1024),
+            ListingView(meta, merged), bt.ObjectStoreDataStore(client))
+        merger.start()
+        before = attempts.n
+        merge_done = threading.Event()
+        merge_out: dict = {}
+
+        def run_merge():
+            try:
+                time.sleep(1.0)  # the burst is under way
+                t0 = time.perf_counter()
+                stats = merger.merge()
+                merge_out.update(files=stats.files_processed, rows=stats.rows_processed,
+                                 rows_per_s=stats.rows_per_second,
+                                 wall_s=time.perf_counter() - t0)
+            except BaseException as exc:
+                merge_out["error"] = exc
+            finally:
+                merge_done.set()
+
+        merge_thread = threading.Thread(target=run_merge)
+        merge_thread.start()
+        during = scale_out_burst(coord, shapes, want, SCALE_OUT_MERGE_THREADS,
+                                 "during the merge", until=merge_done)
+        merge_thread.join()
+        if "error" in merge_out:
+            raise merge_out.pop("error")
+        if merge_out["files"] != SCALE_OUT_MERGE_FILES:
+            raise AssertionError(f"the merge rewrote {merge_out['files']} files")
+        after_merge = check_every_shape(coord, shapes, want, "after the merge")
+        out["merge"] = {**merge_out, "during": during, "after_ms": after_merge,
+                        "stale_retries": attempts.n - before - during["queries"] - len(shapes)}
+        log(f"scale-out merge: {out['merge']}")
+        files_seen = listing + [mf for mf in meta.get_maybe_files_for_query(None)
+                                if mf.pointer not in {f.pointer for f in listing}]
+
+        # (e) a killed peer
+        victim = peers[-1]
+
+        def kill():
+            time.sleep(0.5)
+            victim["proc"].kill()
+            victim["killed"] = True
+            log(f"scale-out: SIGKILL to peer {victim['name']}")
+
+        out["kill"] = {"peer": victim["name"], "burst": scale_out_burst(
+            coord, shapes, want, SCALE_OUT_THREADS, "16 threads, a peer killed",
+            on_start=kill)}
+        victim["proc"].wait(timeout=60)
+        out["kill"]["survivors_ms"] = check_every_shape(coord, shapes, want, "survivors")
+        records = stop_peers(peers)
+        out["object_peers"] = check_peer_records(records, files_seen, {victim["name"]})
+        peers = []
+
+        # (f) the data-partitioned form through --dir
+        halves = [os.path.join(root, f"half{h}") for h in range(2)]
+        for h, directory in enumerate(halves):
+            os.makedirs(directory)
+            for mf in files[h::2]:
+                path = mf.pointer.decode("utf-8")
+                os.link(path, os.path.join(directory, os.path.basename(path)))
+        for h, directory in enumerate(halves):
+            peers.append(start_peer(root, f"d{h}", serve_argv(["--dir", directory]),
+                                    h if n_cards >= 2 else None))
+        wait_serving(peers)
+        gather = tpar.ScatterGatherCoordinator(
+            [tpar.RemoteQueryPeer(*p["address"]) for p in peers])
+        store = bt.FileSystemDataStore(cache)
+        dir_host = bt.BloomSearchEngine(engine_config(probe_backend="host"), store, store)
+        dir_host.start()
+        try:
+            dir_want = {name: rowset(dir_host.query_sync(q, timeout=600))
+                        for name, q in shapes.items()}
+        finally:
+            dir_host.stop(timeout=600)
+        out["dir"] = {"cold_ms": check_every_shape(gather, shapes, dir_want, "dir cold"),
+                      "warm_ms": check_every_shape(gather, shapes, dir_want, "dir warm"),
+                      "burst": scale_out_burst(gather, shapes, dir_want, SCALE_OUT_THREADS,
+                                               "dir, 16 threads")}
+        if out["dir"]["burst"]["outcomes"] != {"exact": out["dir"]["burst"]["queries"]}:
+            raise AssertionError(f"dir, 16 threads: {out['dir']['burst']['outcomes']}")
+        records = stop_peers(peers)
+        peers = []
+        out["dir_peers"] = check_peer_records(records, files, set())
+        for name, rec in out["dir_peers"].items():
+            if rec.get("host_shadow") is not False:
+                raise AssertionError(f"--dir peer {name}: the host shadow is on")
+        for name, rec in out["object_peers"].items():
+            if rec.get("host_shadow") is not True:
+                raise AssertionError(f"object-store peer {name}: the host shadow is off")
+    finally:
+        for peer in peers:
+            if peer["proc"].poll() is None:
+                peer["proc"].kill()
+                peer["proc"].wait()
+        for engine in (merger, host):
+            if engine is not None:
+                engine.stop(timeout=600)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"scale-out: phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+def scale_out_record(out: dict) -> dict:
+    """Phase 12's numbers for the kernels line: per coordinator step its
+    times, qps and outcomes; the merge; the killed peer; each surviving
+    peer's launches, cold probes, warms, pins, stale bytes and peak."""
+    def peer(rec: dict) -> dict:
+        rc = rec.get("row_cache", {})
+        return {"launches": rec["launches"], "sparse_cold_probes":
+                rec["budget"]["sparse_cold_probes"], "bank_warms_completed":
+                rec["budget"]["bank_warms_completed"], "pins": rc.get("pins"),
+                "pinned_blocks": rc.get("pinned_blocks"), "host_shadow": rec.get("host_shadow"),
+                "superbank_bytes": rec["superbank_bytes"],
+                "stale_superbank_bytes": rec["stale_superbank_bytes"],
+                "stale_stream_bytes": rec.get("stale_stream_bytes"),
+                "peak_bytes": rec["peak_bytes"], "memory_bound": rec["memory_bound"],
+                "rechecked": rec["rechecked"], "spans_ms": rec["spans_ms"]}
+
+    return {
+        "card": out["card"], "seconds": out["seconds"], "peers": out["peers"],
+        "bucket": out["bucket"],
+        "start_s": out["start_s"], "cold_ms": out["cold_ms"], "warm_p50_ms": out["warm_p50_ms"],
+        "warm_passes_s": out["warm_passes_s"], "burst": out["burst"], "merge": out["merge"],
+        "kill": out["kill"], "dir": out["dir"],
+        "object_peers": {k: peer(v) for k, v in out["object_peers"].items()},
+        "dir_peers": {k: peer(v) for k, v in out["dir_peers"].items()},
+    }
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--peer"]:  # phase 12's child: --peer RECORD SERVE-ARGUMENTS...
+        return peer_main(argv[1], argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--target-mb", type=int, default=1600,
                         help="refscale dataset size (the reference's 1.6 GB)")
@@ -4058,6 +4783,10 @@ def main(argv=None) -> int:
     writes = writes_record(phase_writes(dev, args.target_mb, args.seed))
     done("writes")
     log(json.dumps({"writes": writes}))
+    scale_out = phase_scale_out(dev, args.target_mb, args.seed, serving_p50={
+        k[len("warm_p50_ms_"):]: v for k, v in serving.items() if k.startswith("warm_p50_ms_")})
+    done("scale-out")
+    log(json.dumps({"scale_out": scale_out}))
     for name, (counter, replaces) in SCAN_MODES.items():
         if counter not in scan_cases:
             raise AssertionError(f"{name} was not launched on the serving path")
@@ -4096,7 +4825,8 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main path")
-    log(json.dumps({"kernels": kernels, "beyond_budget": beyond, "writes": writes}))
+    log(json.dumps({"kernels": kernels, "beyond_budget": beyond, "writes": writes,
+                    "scale_out": scale_out_record(scale_out)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
