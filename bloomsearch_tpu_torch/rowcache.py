@@ -950,8 +950,23 @@ class DeviceRowCache:
 
         The query planner knows every surviving block upfront, so a warm
         serving-mode query costs ~one scan launch total instead of one per
-        block. -> {block.key: bool[len(needles), num_rows]}.
+        block. -> {block.key: bool[len(needles), num_rows]}: the scan's
+        bitmaps (``scan_bitmaps``) ORed with each block's always-candidate
+        rows.
         """
+        out = self.scan_bitmaps(blocks, needles)
+        for block in blocks:
+            if block.always_candidate.any():
+                out[block.key][:, block.always_candidate[: block.num_rows]] = True
+        return out
+
+    def scan_bitmaps(
+        self, blocks: list[_PinnedBlock], needles: list[bytes]
+    ) -> dict[tuple, np.ndarray]:
+        """``scan_many`` before the always-candidate rows: the kernel's
+        chunk hits expanded to rows, all rows for a needle it cannot scan
+        (empty or longer than MAX_NEEDLE) and for a block evicted or moved
+        under the scan."""
         out: dict[tuple, np.ndarray] = {}
         usable = tuple(n for n in needles if n and len(n) <= MAX_NEEDLE)
         hits = (
@@ -978,8 +993,6 @@ class DeviceRowCache:
                         mat[qi] = _expand_chunk_hits(
                             block, len(needle), block_hits[needle]
                         )
-            if block.always_candidate.any():
-                mat[:, block.always_candidate[: block.num_rows]] = True
             out[block.key] = mat
         return out
 

@@ -213,10 +213,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the plain version; every surviving peer must show K1e launches,
    K2/K2s launches where it scanned, no ERROR record or thread exception,
    and a peak under ``peer_memory_bound``.
+13. the query language and both bloom layouts: (a) while the dataset's
+   child generates refscale and then its blocked-256 copy (after phase 4,
+   before phase 5), the oracle fuzz's episodes
+   (``bloomsearch_tpu_torch/tools/oracle_fuzz.py``, the JAX package's
+   ``tests/test_oracle_fuzz.py`` as episodes) on ``device="cuda"``: the
+   device and serving backends x the fs and in-memory object stores x
+   both layouts x rows or the serialized mix x the codecs none, snappy and
+   zstd where the host has it, the host backend as the control, both
+   backends at both layouts and both ingests on a 4-shard mesh (four
+   cards when four are visible, else cuda:0 four times), and the long
+   variant (rows over one stream chunk, non-ASCII tokens, needles over 32
+   bytes, an OR wider than one launch) on serving on one card and the
+   mesh; every query exact against the oracle (the minmax subset rule),
+   each episode's final queries again from 8 threads at once; every probe
+   and scan call held against its plain version as it returns
+   (``LaunchCheck``), the probe calls at blocked positions and the rows
+   found through the always-candidate flags alone (``EscapeCounter``)
+   counted and required, the launch counters set to 0 just before and
+   read just after, every probe launch shape re-run (phase 6's helper), no
+   ERROR record or thread exception; (b) after phase 12, the blocked copy
+   (``blocked_dataset``: refscale's blocks decoded and re-ingested through
+   ``ingest_serialized`` with their partitions by an engine with
+   ``generate_fast``'s settings and ``bloom_layout="blocked256"``) under
+   the probe cell's and the serving cell's settings: warmup, every
+   phase-5/7 shape against the classic host probe's rows beside phases 5
+   and 7's p50s, the candidate blocks of both layouts, 16 threads, a pass
+   with every launch held against its plain version; the one-card
+   combined probe at the blocked superbank's width at blocked and classic
+   positions in turns, each with its bound from the distinct rows it
+   touches; (c) the classic files at even places and the blocked copies
+   of the odd ones behind a ``MemoryMetaStore``, served with both
+   superbanks resident, every shape against the classic host probe's
+   rows, then a merge of two files of each layout that must keep the
+   layouts apart.
 
 The line before the last is the kernels' JSON record, with phase 9's
-numbers under ``beyond_budget``, phase 11's under ``writes`` and phase 12's
-under ``scale_out``; the last line is ``{"ok": true, "device": {...}}``.
+numbers under ``beyond_budget``, phase 11's under ``writes``, phase 12's
+under ``scale_out`` and phase 13's under ``query_language``; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1076,13 +1111,15 @@ def refscale_dataset(target_mb: int, seed: int) -> str:
     return cache
 
 
-def start_refscale_dataset(target_mb: int, seed: int) -> subprocess.Popen:
+def start_refscale_dataset(target_mb: int, seed: int, blocked: bool = False) -> subprocess.Popen:
     """Generate the dataset in a child process (host work), so the kernel
     phases run on the card meanwhile; ``refscale_dataset`` then finds it
-    cached. The caller waits for the child, or kills it."""
+    cached. With ``blocked`` the child then builds phase 13's blocked copy
+    (``blocked_dataset``). The caller waits for the child, or kills it."""
     here = os.path.dirname(os.path.abspath(__file__))
+    call = "blocked_dataset" if blocked else "refscale_dataset"
     code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
-            f"chip_smoke.refscale_dataset({int(target_mb)}, {int(seed)})")
+            f"chip_smoke.{call}({int(target_mb)}, {int(seed)})")
     return subprocess.Popen([sys.executable, "-c", code], cwd=here)
 
 
@@ -2973,9 +3010,9 @@ def phase_tools(dev, target_mb: int, seed: int) -> dict:
     }
 
 
-def probe_phases(dev, args, cases: dict, done) -> list[dict]:
+def probe_phases(dev, args, cases: dict, done) -> tuple[list[dict], dict]:
     """Phases 5 and 6: the probe engine and the main-path shapes -> the
-    K1 epilogues' entries of the kernels line."""
+    K1 epilogues' entries of the kernels line, and phase 5's readings."""
     engine = phase_engine(dev, args.target_mb, args.seed)
     done("engine")
     launched = engine.pop("launch_shapes")
@@ -3008,7 +3045,7 @@ def probe_phases(dev, args, cases: dict, done) -> list[dict]:
             "combined_verdict": turns["verdict"],
             "combined_plan_split_us": turns["plan_split_us"],
         })
-    return kernels
+    return kernels, engine
 
 
 def combined_call_turns(dev, main_cases: dict, refscale_rows: int = REFSCALE_ROWS,
@@ -3731,6 +3768,19 @@ class MeshScanRecorder:
             setattr(self.rc, name, fn)
 
 
+def plain_requested_bits(flat: torch.Tensor, needles, lens, n_real: int, starts: list,
+                         counts: list) -> list[np.ndarray]:
+    """The plain version's bits of each requested range, bool[n_real,
+    count], over the logical stream ``flat``."""
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    plain = plain_scan(ks, flat, needles, lens, n_real, starts, counts).cpu()
+    read, rounded = ks.segment_layout(starts, counts, flat.shape[0])
+    base = [int(o) + st - r for o, st, r in zip(np.cumsum([0] + rounded[:-1]), starts, read)]
+    return mj.requested_bits(plain, base, counts)
+
+
 def recheck_mesh_scans(dev, mesh, stream: tuple, recorded: dict) -> int:
     """Each recorded sharded scan shape re-run on the mesh's final stream
     against the plain version on its logical stream (every requested chunk
@@ -3751,12 +3801,8 @@ def recheck_mesh_scans(dev, mesh, stream: tuple, recorded: dict) -> int:
         starts, counts = a["starts"], a["seg_chunks"]
         got, base = pm.sharded_scan_segments(mesh, stream, starts, a["needles"], a["lens"],
                                              n_real=a["n_real"], seg_chunks=counts)
-        plain = plain_scan(ks, flat, a["needles"], a["lens"], a["n_real"], starts, counts).cpu()
-        read, rounded = ks.segment_layout(starts, counts, flat.shape[0])
-        plain_base = [int(o) + st - r for o, st, r in zip(np.cumsum([0] + rounded[:-1]), starts,
-                                                            read)]
         mine = mj.requested_bits(got, base, counts)
-        theirs = mj.requested_bits(plain, plain_base, counts)
+        theirs = plain_requested_bits(flat, a["needles"], a["lens"], a["n_real"], starts, counts)
         if not all(np.array_equal(x, y) for x, y in zip(mine, theirs)):
             raise AssertionError(f"mesh sparse scan {key} differs from the plain version")
     del flat
@@ -4063,8 +4109,8 @@ class ListingView:
     def update(self, writes, deletes):
         self.meta.update(writes, deletes)
 
-    def acquire_merge_lease(self, *args, **kwargs):
-        return self.meta.acquire_merge_lease(*args, **kwargs)
+    def __getattr__(self, name):  # the lease, where ``meta`` has one
+        return getattr(self.meta, name)
 
 
 class PeerWatch:
@@ -4719,6 +4765,731 @@ def scale_out_record(out: dict) -> dict:
     }
 
 
+# -- phase 13: the query language and both bloom layouts ---------------------------
+
+BLOCKED = "blocked256"
+LAYOUTS = ("classic", BLOCKED)
+QL_SEED = 13_000
+QL_MESH_SEED = 13_500
+QL_LONG_SEED = 13_900
+QL_HOST_EPISODES = 4
+QL_THREADS = 8  # each episode's final queries again from 8 threads at once
+MIXED_MERGE_BYTES = 32 * 1024 * 1024  # two refscale blocks of a partition merge within this
+LAYOUT_TURNS = 5  # (blocked, classic, classic, blocked) rounds: ten turns a form
+
+
+def joined(x, axis: int, dev) -> torch.Tensor:
+    """A tensor or a mesh's tuple of shards as one tensor on ``dev``."""
+    return x if isinstance(x, torch.Tensor) else torch.cat([s.to(dev) for s in x], dim=axis)
+
+
+def blocked_positions(rows, T: int, k: int) -> bool:
+    """Whether every term's k probe rows lie in one aligned 8-row group: the
+    blocked-256 layout's positions (its m is whole 256-bit blocks, so each
+    keyspace starts on a multiple of 8 rows). Classic positions of k = 10
+    probes do so with a chance below (8 / W)^9 at W >= 4,493 words."""
+    groups = np.asarray(rows, dtype=np.int64).reshape(T, k) // 8
+    return bool((groups == groups[:, :1]).all())
+
+
+class LaunchCheck:
+    """Every probe call of the combiner (``bloom/bank.py::_probe``: the plan
+    call on one card, ``sharded_probe`` on a mesh) and every scan call of
+    the row cache (``sharded_scan_all_rows`` and ``sharded_scan_segments``)
+    held, as it returns, against the plain version on the same inputs (a
+    mesh's shards joined on ``dev``): every word of a probe and of a dense
+    scan, every requested chunk of a sparse one, bit-identical; a
+    disagreement raises inside the query, which fails. Counts the probe
+    calls by epilogue and those at blocked positions, the scan calls by
+    mode, and the distinct launch shapes."""
+
+    def __init__(self, dev):
+        import bloomsearch_tpu_torch.bloom.bank as bank_mod
+        import bloomsearch_tpu_torch.rowcache as rc
+
+        self.dev, self.bank_mod, self.rc = dev, bank_mod, rc
+        self.orig = {"_probe": bank_mod._probe,
+                     "sharded_scan_all_rows": rc.sharded_scan_all_rows,
+                     "sharded_scan_segments": rc.sharded_scan_segments}
+        self.probes: dict[str, int] = {}
+        self.blocked: dict[str, int] = {}
+        self.scans = {"stream": 0, "segments": 0}
+        self.shapes: set = set()
+        self.lock = threading.Lock()
+
+    def _probe(self, mesh, bank2d, row_idx, shift, T, K, epilogue, **extra):
+        from bloomsearch_tpu_torch.kernels import probe as pk
+
+        out = self.orig["_probe"](mesh, bank2d, row_idx, shift, T, K, epilogue, **extra)
+        bank = joined(bank2d, 1, self.dev)
+        rows, shifts = (torch.as_tensor(np.asarray(a, dtype=np.int32)).to(self.dev)
+                        for a in (row_idx, shift))
+        match = pk.probe_plain(bank, rows, shifts, T, K)
+        if epilogue == "reduce_and":
+            match = pk.reduce_and_plain(match, extra["and_bits"])
+        elif epilogue == "clauses":
+            match = pk.clauses_plain(match, extra["clause_bits"], extra["member_bits"])
+        if not torch.equal(out, pk.pack_bitmap_plain(match).cpu()):
+            raise AssertionError(f"probe {epilogue} T={T} C={bank.shape[1]} differs from the "
+                                 "plain version")
+        blocked = blocked_positions(row_idx, T, K)
+        with self.lock:
+            self.probes[epilogue] = self.probes.get(epilogue, 0) + 1
+            if blocked:
+                self.blocked[epilogue] = self.blocked.get(epilogue, 0) + 1
+            self.shapes.add(("probe", epilogue, bank.shape[1], T, out.shape[0],
+                             mesh is not None, blocked))
+        return out
+
+    def _dense(self, mesh, rows32, needles, lens, *, n_real):
+        from bloomsearch_tpu_torch.kernels import scan as ks
+
+        out = self.orig["sharded_scan_all_rows"](mesh, rows32, needles, lens, n_real=n_real)
+        flat = joined(rows32, 0, self.dev)
+        if not torch.equal(out, plain_scan(ks, flat, needles, lens, n_real).cpu()):
+            raise AssertionError(f"dense scan G={flat.shape[0]} n_real={n_real} differs from "
+                                 "the plain version")
+        with self.lock:
+            self.scans["stream"] += 1
+            self.shapes.add(("stream", flat.shape[0], n_real, mesh is not None))
+        return out
+
+    def _segments(self, mesh, rows32, seg_starts, needles, lens, *, n_real, seg_chunks):
+        from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+        got, base = self.orig["sharded_scan_segments"](mesh, rows32, seg_starts, needles, lens,
+                                                       n_real=n_real, seg_chunks=seg_chunks)
+        starts = [int(v) for v in seg_starts]
+        counts = [int(v) for v in np.broadcast_to(seg_chunks, (len(starts),))]
+        mine = mj.requested_bits(got, base, counts)
+        theirs = plain_requested_bits(joined(rows32, 0, self.dev), needles, lens, n_real, starts,
+                                      counts)
+        if not all(np.array_equal(a, b) for a, b in zip(mine, theirs)):
+            raise AssertionError(f"sparse scan over {list(zip(starts, counts))} n_real={n_real} "
+                                 "differs from the plain version")
+        with self.lock:
+            self.scans["segments"] += 1
+            self.shapes.add(("segments", n_real, tuple(counts), mesh is not None))
+        return got, base
+
+    def __enter__(self):
+        self.bank_mod._probe = self._probe
+        self.rc.sharded_scan_all_rows = self._dense
+        self.rc.sharded_scan_segments = self._segments
+        return self
+
+    def __exit__(self, *exc):
+        self.bank_mod._probe = self.orig["_probe"]
+        for name in ("sharded_scan_all_rows", "sharded_scan_segments"):
+            setattr(self.rc, name, self.orig[name])
+
+
+def ql_mesh(dev):
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return pm.Mesh(tuple(torch.device("cuda", i) for i in range(MESH_SHARDS)))
+    return pm.Mesh((dev,) * MESH_SHARDS)
+
+
+def ql_episodes(dev, codecs: tuple) -> list[dict]:
+    """The grid: on one card, the device and serving backends x the fs and
+    in-memory object stores x both layouts x rows or the serialized mix x
+    ``codecs``; the host backend as the control; on a 4-shard mesh, both
+    backends x both layouts x both ingests; and the long-row / long-needle /
+    non-ASCII variant on serving at both layouts on one card and on the
+    mesh. Each episode's seed is its own."""
+    out = []
+    for backend in ("device", "serving"):
+        for store in ("fs", "object"):
+            for layout in LAYOUTS:
+                for frac in (0.0, 0.6):
+                    for codec in codecs:
+                        out.append(dict(backend=backend, store=store, layout=layout, frac=frac,
+                                        codec=codec, mesh=False, variant="reference"))
+    for i in range(QL_HOST_EPISODES):
+        out.append(dict(backend="host", store=("fs", "object")[i % 2], layout=LAYOUTS[i // 2],
+                        frac=(0.0, 0.6)[i % 2], codec="snappy", mesh=False,
+                        variant="reference"))
+    for backend in ("device", "serving"):
+        for layout in LAYOUTS:
+            for frac in (0.0, 0.6):
+                out.append(dict(backend=backend, store=("fs", "object")[int(frac > 0)],
+                                layout=layout, frac=frac, codec="snappy", mesh=True,
+                                variant="reference"))
+    for mesh in (False, True):
+        for layout in LAYOUTS:
+            out.append(dict(backend="serving", store="fs", layout=layout, frac=0.6,
+                            codec="snappy", mesh=mesh, variant="long"))
+    for i, ep in enumerate(out):
+        base = QL_LONG_SEED if ep["variant"] == "long" else QL_MESH_SEED if ep["mesh"] else QL_SEED
+        ep["seed"] = base + i
+    return out
+
+
+def run_ql_episode(dev, ep: dict, check: LaunchCheck) -> dict:
+    """One episode on the card; -> its counts, with its escapes on serving."""
+    from unittest import mock
+
+    import bloomsearch_tpu_torch as bt
+    import bloomsearch_tpu_torch.bloom.bank as bank_mod
+    import bloomsearch_tpu_torch.rowcache as rc_mod
+    from bloomsearch_tpu_torch.tools import oracle_fuzz as of
+
+    episode = of.plan_episode(ep["seed"], ep["frac"], variant=ep["variant"])
+    settings = of.EpisodeSettings(
+        backend=ep["backend"], store=ep["store"], compression=ep["codec"], layout=ep["layout"],
+        extra=(("device", str(dev)), ("mesh_devices", MESH_SHARDS if ep["mesh"] else 1)))
+    directory = tempfile.mkdtemp(prefix="bloomsearch-ql-")
+    try:
+        if ep["mesh"]:
+            mesh = ql_mesh(dev)
+            with mock.patch.object(bank_mod, "mesh_for", lambda n, d: mesh), \
+                    mock.patch.object(rc_mod, "mesh_for", lambda n, d: mesh):
+                engine = of.open_engine(bt, episode, settings, directory)
+        else:
+            engine = of.open_engine(bt, episode, settings, directory)
+        serving = ep["backend"] == "serving"
+        probes_before = sum(check.probes.values())
+        blocked_before = sum(check.blocked.values())
+        try:
+            if serving:
+                with of.EscapeCounter(engine) as escapes:
+                    counts = of.run_episode(
+                        [of.Target("port", bt, engine, True)], episode,
+                        on_query=lambda spec, q, rows, all_rows: escapes.after_query(rows["port"]),
+                        threads=QL_THREADS)
+                counts.update(flag_only=escapes.flag_only, escapes=escapes.accepted)
+            else:
+                counts = of.run_episode([of.Target("port", bt, engine)], episode,
+                                        threads=QL_THREADS)
+            stats = engine.stats()
+        finally:
+            engine.stop(timeout=600)
+        if ep["backend"] != "host":
+            layouts = {k.rsplit(",", 1)[1] for k in stats["device"]["superbanks"]}
+            if layouts != {ep["layout"]}:
+                raise AssertionError(f"episode {ep}: superbanks {sorted(layouts)}")
+            probes = sum(check.probes.values()) - probes_before
+            blocked = sum(check.blocked.values()) - blocked_before
+            # Every probe of a blocked episode at blocked positions, none of a classic one.
+            if probes == 0 or blocked != (probes if ep["layout"] == BLOCKED else 0):
+                raise AssertionError(f"episode {ep}: {blocked} of {probes} probe calls at "
+                                     "blocked positions")
+        elif sum(check.probes.values()) != probes_before:
+            raise AssertionError(f"episode {ep}: the host backend probed on the card")
+        return counts
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def phase_query_language(dev) -> dict:
+    """Step a: the oracle episodes on the card (``ql_episodes``), every
+    query exact against the oracle, every probe and scan call held against
+    the plain version as it returns (``LaunchCheck``); the launch counters
+    set to 0 just before and read just after; then every probe launch shape
+    re-run on a refscale-sized random bank (phase 6's helper)."""
+    from bloomsearch_tpu_torch.compression import compression_available
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.kernels import scan as ks
+    from bloomsearch_tpu_torch.parallel import mesh as pm
+
+    codecs = ("none", "snappy")
+    if compression_available("zstd"):
+        codecs += ("zstd",)
+        log("query language: zstd is available on this host; its episodes run")
+    else:
+        log("query language: zstd is not available on this host (compression_available); "
+            "its episodes are skipped")
+    grid = ql_episodes(dev, codecs)
+    log(f"query language: {len(grid)} episodes on {card_line()}")
+    totals: dict = {"episodes": 0, "mesh_episodes": 0, "queries": 0, "minmax_queries": 0,
+                    "concurrent_queries": 0, "rows": 0, "merges": 0, "flushes": 0, "flag_only": 0, "escapes": 0,
+                    "by_backend": {}, "codecs": list(codecs)}
+    t0 = time.perf_counter()
+    pk.reset_launch_counts()
+    ks.reset_launch_counts()
+    pm.reset_launch_counts()
+    with PeerWatch() as watch, LaunchCheck(dev) as check:
+        for ep in grid:
+            counts = run_ql_episode(dev, ep, check)
+            for key in ("queries", "minmax_queries", "concurrent_queries", "rows", "merges",
+                        "flushes", "flag_only", "escapes"):
+                totals[key] += counts.get(key, 0)
+            totals["episodes"] += 1
+            totals["mesh_episodes"] += int(ep["mesh"])
+            label = ep["backend"] + (" mesh" if ep["mesh"] else "")
+            totals["by_backend"][label] = totals["by_backend"].get(label, 0) + 1
+            if ep["variant"] == "long":
+                log(f"query language: long variant {ep}: {counts}")
+    totals["launches"] = pk.launch_counts()
+    totals["scan_launches"] = ks.launch_counts()
+    totals["mesh_launches"] = pm.launch_counts()
+    launched = pk.launch_shapes()
+    totals["seconds"] = time.perf_counter() - t0
+    totals["checked_probe_calls"] = dict(check.probes)
+    totals["blocked_probe_calls"] = dict(check.blocked)
+    totals["checked_scan_calls"] = dict(check.scans)
+    totals["checked_shapes"] = len(check.shapes)
+    totals["errors"] = list(watch.errors)
+    log(f"query language: {totals}")
+    one_card = totals["episodes"] - totals["mesh_episodes"]
+    if one_card < 32 or totals["mesh_episodes"] < 8:
+        raise AssertionError(f"{one_card} one-card and {totals['mesh_episodes']} mesh episodes")
+    if totals["escapes"] < 1:
+        raise AssertionError("no row was found through the always-candidate flags alone")
+    if sum(check.blocked.values()) < 1:
+        raise AssertionError("no probe launch at blocked positions")
+    for counter in ("pack", "reduce_and", "clauses"):
+        if totals["launches"][counter] < 1:
+            raise AssertionError(f"the episodes launched no {counter} probe")
+    for counter in ("stream", "segments"):
+        if totals["scan_launches"][counter] < 1:
+            raise AssertionError(f"the episodes launched no {counter} scan")
+    if watch.errors:
+        raise AssertionError(f"query language: {watch.errors[:5]}")
+    phase_main_shapes(dev, launched, {})
+    totals["probe_shapes_rerun"] = len(launched)
+    return totals
+
+
+BLOCKED_COPY_PROCS = 4  # child processes that build the blocked copy, a share of files each
+
+
+def blocked_dataset(target_mb: int, seed: int) -> str:
+    """The refscale rows in the blocked-256 layout, cached under ~/.cache
+    beside refscale (keyed by seed, size and layout), built by
+    ``BLOCKED_COPY_PROCS`` child processes (``copy_blocked``), each over
+    every n-th refscale file by age into a directory of its own, whose
+    files are then moved into the cache. ``COPIES.json`` maps each refscale
+    file's name to the copy files its rows went into."""
+    import bloomsearch_tpu_torch as bt
+
+    src = refscale_dataset(target_mb, seed)
+    cache = os.path.expanduser(
+        f"~/.cache/bloomsearch-torch-refscale/v1-snappy-{target_mb}mb-seed{seed}-{BLOCKED}")
+    marker = os.path.join(cache, "COPIES.json")
+    if os.path.exists(marker):
+        log(f"blocked copy cached at {cache}")
+        return cache
+    shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(cache)
+    t0 = time.perf_counter()
+    names = [os.path.basename(mf.pointer.decode()) for mf in sorted(
+        bt.FileSystemDataStore(src).get_maybe_files_for_query(None),
+        key=lambda mf: os.stat(mf.pointer.decode()).st_mtime_ns)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    parts = [os.path.join(cache, f"part{i}") for i in range(BLOCKED_COPY_PROCS)]
+    children = [subprocess.Popen([sys.executable, "-c", (
+        f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+        f"chip_smoke.copy_blocked({src!r}, {part!r}, {names[i::BLOCKED_COPY_PROCS]!r})")],
+        cwd=here) for i, part in enumerate(parts)]
+    try:
+        codes = [child.wait() for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    if any(codes):
+        raise RuntimeError(f"blocked copy children exited with {codes}")
+    copies: dict = {}
+    rows = 0
+    for part in parts:
+        with open(os.path.join(part, "COPIES.json")) as fh:
+            built = json.load(fh)
+        rows += built["rows"]
+        copies.update(built["copies"])
+        for name in (n for files in built["copies"].values() for n in files):
+            os.rename(os.path.join(part, name), os.path.join(cache, name))
+        shutil.rmtree(part)
+    with open(marker, "w") as fh:
+        json.dump({"rows": rows, "seconds": time.perf_counter() - t0, "copies": copies}, fh)
+    log(f"blocked copy built in {time.perf_counter() - t0:.1f} s by {BLOCKED_COPY_PROCS} "
+        f"processes: {rows} rows, {sum(len(v) for v in copies.values())} files")
+    return cache
+
+
+def copy_blocked(src: str, out_dir: str, names: list[str]) -> None:
+    """The refscale files ``names`` (in this order) copied into ``out_dir``
+    in the blocked-256 layout: each file's blocks decoded and their rows
+    ingested through ``ingest_serialized`` with the block's partition, by
+    an engine with ``perf.generate_fast``'s settings and
+    ``bloom_layout="blocked256"``, a flush after each file; writes
+    ``COPIES.json`` (each name's copy files, the rows)."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch import native
+    from bloomsearch_tpu_torch.file_format import read_block_rows_compressed
+
+    os.makedirs(out_dir)
+    store = bt.FileSystemDataStore(src)
+    by_name = {os.path.basename(mf.pointer.decode()): mf
+               for mf in store.get_maybe_files_for_query(None)}
+    out = bt.FileSystemDataStore(out_dir)
+    engine = bt.BloomSearchEngine(bt.BloomSearchEngineConfig(
+        row_data_compression="snappy", probe_backend="host", max_row_group_bytes=10 * 1024 * 1024,
+        max_row_group_rows=1_000_000, max_buffered_rows=2_000_000,
+        max_buffered_bytes=200 * 1024 * 1024, max_buffered_time=3600.0,
+        max_file_size=100 * 1024 * 1024, bloom_layout=BLOCKED), out, out)
+    engine.start()
+    copies: dict = {}
+    seen: set = set()
+    rows = 0
+    try:
+        for name in names:
+            mf = by_name[name]
+            with store.open_file(mf.pointer) as fh:
+                for blk in mf.metadata.data_blocks:
+                    processed = native.process_block(
+                        read_block_rows_compressed(fh, blk, verify=False), blk.compression,
+                        blk.row_data_hash, blk.uncompressed_size, [])
+                    if processed is None:
+                        raise RuntimeError("decoding the refscale blocks needs the native "
+                                           "host library")
+                    data, offsets, lengths, _ = processed
+                    buf = bytes(data)
+                    payload = [buf[o:o + n] for o, n in zip(offsets.tolist(), lengths.tolist())]
+                    for lo in range(0, len(payload), 10_000):
+                        engine.ingest_serialized(payload[lo:lo + 10_000], timeout=600,
+                                                 partition_id=blk.partition_id)
+                    rows += len(payload)
+            engine.flush(timeout=600)
+            new = [m.pointer for m in out.get_maybe_files_for_query(None) if m.pointer not in seen]
+            seen.update(new)
+            copies[name] = [os.path.basename(p.decode()) for p in new]
+    finally:
+        engine.stop(timeout=600)
+    with open(os.path.join(out_dir, "COPIES.json"), "w") as fh:
+        json.dump({"rows": rows, "copies": copies}, fh)
+
+
+def candidate_blocks(engine, query) -> int:
+    """The blocks a query's probe left for the block stage (its ``jobs``)."""
+    engine.query_sync(query, timeout=600)
+    return engine.stats()["last_query_timings"][-1]["jobs"]
+
+
+def checked_pass(dev, engine, shapes: dict, results: dict, label: str) -> dict:
+    """Every shape once more under ``LaunchCheck``: its launches held
+    against the plain version as they return, its rows against ``results``."""
+    with LaunchCheck(dev) as check:
+        for name, query in shapes.items():
+            if rowset(engine.query_sync(query, timeout=600)) != results[name]:
+                raise AssertionError(f"{label} {name}: rows differ in the checked pass")
+    out = {"probe_calls": dict(check.probes), "blocked_probe_calls": dict(check.blocked),
+           "scan_calls": dict(check.scans), "shapes": len(check.shapes)}
+    log(f"{label}: checked pass {out}")
+    return out
+
+
+def layout_probe_case(query, epilogue: str, m_bits: int, k: int, num_words: int,
+                      layout: str) -> dict:
+    """A query's probe arrays on a superbank of ``num_words`` words a
+    keyspace at ``layout``'s positions, as the engine builds them, with its
+    epilogue's arguments."""
+    from bloomsearch_tpu_torch.bloom.probe import compile_bloom_terms, compile_cnf_clauses
+
+    terms = compile_bloom_terms(query.bloom)
+    T = len(terms)
+    word_idx, bit_idx = terms.positions_for(m_bits, k, layout)
+    rows = (terms.ks_idx[:, None].astype(np.int32) * num_words + word_idx).reshape(-1)
+    if epilogue == "reduce_and":
+        kw = {"and_bits": (1 << T) - 1}
+    elif epilogue == "clauses":
+        mask = np.asarray(compile_cnf_clauses(query.bloom.expression, terms))
+        clause_bits = [int(sum(1 << t for t in range(T) if row[t])) for row in mask]
+        kw = {"clause_bits": clause_bits, "member_bits": [(1 << len(clause_bits)) - 1]}
+    else:
+        kw = {}
+    return {"T": T, "rows": rows.astype(np.int32), "shifts": bit_idx.reshape(-1).astype(np.int32),
+            "kw": kw}
+
+
+def layout_probe_turns(dev, bank: torch.Tensor, shapes: dict, m_bits: int, k: int,
+                       num_words: int, reps: int = 25) -> dict:
+    """The one-card combined probe on the blocked superbank at its own width,
+    at blocked and at classic positions of the same terms (the token query
+    reduced with AND, the OR tree through its clauses, and an OR of 16
+    tokens packed), in turns: the kernel into a page-locked buffer between
+    CUDA events and the plan call as a caller sees it, each checked against
+    the plain version; each form's bound from the distinct rows its probes
+    touch, read once, beside the probe arrays and the output."""
+    import bloomsearch_tpu_torch as bt
+    from bloomsearch_tpu_torch.kernels import probe as pk
+    from bloomsearch_tpu_torch.tools import exp_mesh_join as mj
+
+    C = bank.shape[1]
+    wide = bt.new_query().match(bt.or_(*[bt.token(f"layoutterm{i}q") for i in range(16)])).build()
+    plain_name = {"pack": "probe_and_pack", "reduce_and": "probe_reduce_and_pack",
+                  "clauses": "probe_clauses_pack"}
+    result = {}
+    for label, query, epilogue in (("token", shapes["token"], "reduce_and"),
+                                   ("or_tree", shapes["or_tree"], "clauses"),
+                                   ("or_16_tokens", wide, "pack")):
+        forms = {}
+        for layout in (BLOCKED, "classic"):
+            c = layout_probe_case(query, epilogue, m_bits, k, num_words, layout)
+            out_rows = pk.output_rows(epilogue, c["T"], c["kw"].get("member_bits", ()))
+            distinct = len(set(c["rows"].tolist()))
+            nbytes = distinct * C * 4 + c["rows"].size * 8 + out_rows * (C // 32) * 4
+            c.update(distinct=distinct, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=[],
+                     call_ms=[], want=plain_epilogue(pk, plain_name[epilogue], bank, c["rows"],
+                                                     c["shifts"], c["T"],
+                                                     tuple(c["kw"].values()), k).cpu(),
+                     buf=torch.empty((out_rows, C // 32), dtype=torch.int32, pin_memory=True))
+            forms[layout] = c
+        for layout in (BLOCKED, "classic", "classic", BLOCKED) * LAYOUT_TURNS:
+            c = forms[layout]
+            c["ms"].append(event_ms(lambda i: mj.probe_shards_into(
+                c["buf"], 0, [bank], c["rows"], c["shifts"], c["T"], k, epilogue, **c["kw"]),
+                reps, hide_host=True))
+            c["call_ms"].append(mj.call_ms(lambda: pk.probe_plan(
+                [(0, [bank])], C // 32, c["rows"], c["shifts"], c["T"], k, epilogue, **c["kw"]),
+                [dev], reps))
+        for layout, c in forms.items():
+            plan = pk.probe_plan([(0, [bank])], C // 32, c["rows"], c["shifts"], c["T"], k,
+                                 epilogue, **c["kw"])
+            if not torch.equal(c["buf"], c["want"]) or not torch.equal(plan, c["want"]):
+                raise AssertionError(f"{label} at {layout} positions differs from the plain "
+                                     "version")
+        result[label] = {layout: {
+            "epilogue": epilogue, "T": c["T"], "C": C, "distinct_rows": c["distinct"],
+            "median_ms": statistics.median(c["ms"]), "ms": c["ms"],
+            "call_median_ms": statistics.median(c["call_ms"]), "call_ms": c["call_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": "bytes"} for layout, c in forms.items()}
+        log(f"combined probe at the blocked superbank's width C={C}, {label} ({epilogue}): "
+            + "; ".join(f"{layout} {r['distinct_rows']} rows, kernel {r['median_ms']:.6f} ms, "
+                        f"call {r['call_median_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms"
+                        for layout, r in result[label].items()))
+    return result
+
+
+def serve_layout_cell(dev, label: str, store, meta, shapes: dict, results: dict, settings: dict,
+                      reps: int, superbank_layouts: set) -> tuple[dict, object]:
+    """One engine over ``store``: warmup, every shape ``reps`` times against
+    ``results`` (the classic host probe's rows), 16 threads, then the
+    checked pass; -> (its readings, the engine, still running)."""
+    import bloomsearch_tpu_torch as bt
+
+    from bloomsearch_tpu_torch.kernels import probe as pk
+
+    out: dict = {}
+    engine = bt.BloomSearchEngine(engine_config(**settings), meta, store)
+    engine.start()
+    if engine._row_cache is not None:
+        engine._row_cache.needle_cache_enabled = False
+    t0 = time.perf_counter()
+    engine.warmup(block=True)
+    out["warmup_s"] = time.perf_counter() - t0
+    layouts = {k.rsplit(",", 1)[1] for k in engine.stats()["device"]["superbanks"]}
+    if layouts != superbank_layouts:
+        raise AssertionError(f"{label}: superbanks {sorted(layouts)}")
+    pk.reset_launch_counts()
+
+    class Host:  # check_shapes' host engine: the classic host probe's rows
+        def query_sync(self, query, timeout=None):
+            name = next(n for n, q in shapes.items() if q is query)
+            return [json.loads(r) for r in results[name]]
+
+    check_shapes(engine, Host(), shapes, reps, out)
+    out["launches"] = pk.launch_counts()
+    out["candidate_blocks"] = {name: candidate_blocks(engine, q) for name, q in shapes.items()}
+    run_concurrent(engine, shapes, results, out)
+    out["checked"] = checked = checked_pass(dev, engine, shapes, results, label)
+    calls, blocked = (sum(checked[k].values()) for k in ("probe_calls", "blocked_probe_calls"))
+    # Every probe of a blocked superbank at blocked positions; a mixed set
+    # probes both superbanks.
+    if not (0 < blocked == calls if superbank_layouts == {BLOCKED} else 0 < blocked < calls):
+        raise AssertionError(f"{label}: {blocked} of {calls} probe calls at blocked positions")
+    log(f"{label}: warmup {out['warmup_s']:.3f} s, candidate blocks {out['candidate_blocks']}, "
+        f"launches {out['launches']}")
+    return out, engine
+
+
+def phase_blocked_refscale(dev, target_mb: int, seed: int, classic_p50: dict,
+                           reps: int = 7) -> dict:
+    """Step b: the blocked copy of refscale under the probe cell's and the
+    serving cell's settings, each shape's rows equal to the classic host
+    probe's, beside phases 5 and 7's p50s; the candidate blocks of both
+    layouts; the combined probe at blocked and classic positions. Step c:
+    ``phase_mixed_layouts``."""
+    import bloomsearch_tpu_torch as bt
+
+    src = refscale_dataset(target_mb, seed)
+    blocked = blocked_dataset(target_mb, seed)
+    classic_store = bt.FileSystemDataStore(src)
+    store = bt.FileSystemDataStore(blocked)
+    files = store.get_maybe_files_for_query(None)
+    if any(g.params.layout != BLOCKED for mf in files for g in mf.metadata.bank_groups):
+        raise AssertionError("the blocked copy holds a classic bank group")
+    with open(os.path.join(blocked, "COPIES.json")) as fh:
+        built = json.load(fh)
+    out: dict = {"rows": built["rows"], "files": len(files), "build_s": built["seconds"],
+                 "blocks": sum(len(mf.metadata.data_blocks) for mf in files)}
+    log(f"blocked refscale on {card_line()}: {out}")
+    host = bt.BloomSearchEngine(engine_config(probe_backend="host"), classic_store, classic_store)
+    host.start()
+    sidecar = tempfile.mkdtemp(prefix="bloomsearch-ql-sidecar-")
+    try:
+        shapes = needle_shapes()
+        add_common_shapes(host, shapes)  # phases 5 and 7's shapes, from the classic rows
+        results = {name: rowset(host.query_sync(q, timeout=600)) for name, q in shapes.items()}
+        out["classic_candidate_blocks"] = {name: candidate_blocks(host, q)
+                                           for name, q in shapes.items()}
+        probe = dict(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30,
+                     mesh_devices=1)
+        with PeerWatch() as watch:
+            out["probe"], engine = serve_layout_cell(dev, "blocked probe cell", store, store,
+                                                     shapes, results, probe, reps, {BLOCKED})
+            try:
+                (mk, sb), = engine._device_backend._superbanks.items()
+                out["superbank"] = {"m_bits": sb.m_bits, "k": sb.k, "num_words": sb.num_words,
+                                    "columns": sb.bank2d.shape[1], "rows": sb.bank2d.shape[0]}
+                out["layout_turns"] = layout_probe_turns(dev, sb.bank2d, shapes, sb.m_bits, sb.k,
+                                                         sb.num_words)
+            finally:
+                engine.stop(timeout=600)
+            out["serving"], engine = serve_layout_cell(
+                dev, "blocked serving cell", store, store, shapes, results,
+                dict(probe, row_cache_bytes=10 << 30, serving_cache_dir=sidecar), reps, {BLOCKED})
+            engine.stop(timeout=600)
+            out["mixed"] = phase_mixed_layouts(dev, src, blocked, built["copies"], shapes,
+                                               results, reps)
+        if watch.errors:
+            raise AssertionError(f"blocked refscale: {watch.errors[:5]}")
+    finally:
+        host.stop(timeout=600)
+        shutil.rmtree(sidecar, ignore_errors=True)
+    out["classic_p50_ms"] = classic_p50
+    for cell in ("probe", "serving"):
+        log(f"blocked {cell} cell warm p50 (ms): " + ", ".join(
+            f"{name} {out[cell][f'warm_p50_ms_{name}']:.3f} (classic "
+            f"{classic_p50.get(cell, {}).get(name)})" for name in shapes)
+            + "; candidate blocks blocked/classic " + ", ".join(
+            f"{name} {out[cell]['candidate_blocks'][name]}/{out['classic_candidate_blocks'][name]}"
+            for name in shapes))
+    return out
+
+
+def mergeable_pair(files: list, config) -> list:
+    """The first two of ``files`` (by name) that hold two blocks the merge
+    may join (one partition, within ``config``'s row-group caps)."""
+    files = sorted(files, key=lambda mf: mf.pointer)
+    for i, a in enumerate(files):
+        for b in files[i + 1:]:
+            if any(x.partition_id == y.partition_id and x.rows + y.rows <= config.max_row_group_rows
+                   and x.uncompressed_size + y.uncompressed_size <= config.max_row_group_bytes
+                   for x in a.metadata.data_blocks for y in b.metadata.data_blocks):
+                return [a.pointer, b.pointer]
+    raise AssertionError("no two files of one layout hold blocks the merge may join")
+
+
+def phase_mixed_layouts(dev, src: str, blocked: str, copies: dict, shapes: dict, results: dict,
+                        reps: int) -> dict:
+    """Step c: the classic refscale files at even places (by age) and the
+    blocked copies of those at odd places, hardlinked behind a
+    ``MemoryMetaStore`` (the same rows as refscale), served with both
+    superbanks resident under the serving cell's settings, every shape
+    equal to the classic host probe's rows; then an engine that sees two
+    files of each layout (``mergeable_pair``) merges them, and every output
+    file must hold one layout, the classic pair's rows in a classic file
+    and the blocked pair's in a blocked one, and every shape must still
+    hold."""
+    import bloomsearch_tpu_torch as bt
+
+    by_age = sorted(bt.FileSystemDataStore(src).get_maybe_files_for_query(None),
+                    key=lambda mf: os.stat(mf.pointer.decode()).st_mtime_ns)
+    directory = tempfile.mkdtemp(prefix="bloomsearch-mixed-", dir=os.path.dirname(src))
+    sidecar = tempfile.mkdtemp(prefix="bloomsearch-mixed-sidecar-")
+    out: dict = {}
+    try:
+        for i, mf in enumerate(by_age):
+            name = os.path.basename(mf.pointer.decode())
+            if i % 2 == 0:
+                os.link(mf.pointer.decode(), os.path.join(directory, name))
+            else:
+                for copy in copies[name]:
+                    os.link(os.path.join(blocked, copy), os.path.join(directory, copy))
+        store = bt.FileSystemDataStore(directory)
+        meta = bt.MemoryMetaStore()
+        files = store.get_maybe_files_for_query(None)
+        meta.update([bt.WriteOperation(mf.metadata, mf.pointer, file_size=mf.size)
+                     for mf in files], [])
+        layout_of = {mf.pointer: mf.metadata.bloom_filters.field.layout for mf in files}
+        out["files"] = {layout: sum(v == layout for v in layout_of.values()) for layout in LAYOUTS}
+        settings = dict(device=str(dev), probe_backend="device", bank_cache_bytes=6 << 30,
+                        mesh_devices=1, row_cache_bytes=10 << 30, serving_cache_dir=sidecar)
+        cell, engine = serve_layout_cell(dev, "mixed-layout cell", store, meta, shapes, results,
+                                         settings, reps, set(LAYOUTS))
+        out.update(cell)
+        try:
+            merge_config = dataclasses.replace(engine_config(probe_backend="host"),
+                                               max_row_group_bytes=MIXED_MERGE_BYTES)
+            pick = [p for layout in LAYOUTS
+                    for p in mergeable_pair([mf for mf in files if layout_of[mf.pointer] == layout],
+                                            merge_config)]
+            merger = bt.BloomSearchEngine(merge_config, ListingView(meta, pick), store)
+            merger.start()
+            try:
+                t0 = time.perf_counter()
+                stats = merger.merge()
+                out["merge"] = {"files": stats.files_processed, "rows": stats.rows_processed,
+                                "wall_s": time.perf_counter() - t0}
+            finally:
+                merger.stop(timeout=600)
+            after = meta.get_maybe_files_for_query(None)
+            new = [mf for mf in after if mf.pointer not in layout_of]
+            for mf in new:
+                block_layouts = {b.bloom_layout for b in mf.metadata.data_blocks}
+                if block_layouts != {mf.metadata.bloom_filters.field.layout}:
+                    raise AssertionError(f"merged file {mf.pointer!r} mixes layouts "
+                                         f"{sorted(block_layouts)}")
+            merged_rows = {layout: sum(b.rows for mf in new for b in mf.metadata.data_blocks
+                                       if mf.metadata.bloom_filters.field.layout == layout)
+                           for layout in LAYOUTS}
+            picked = {mf.pointer: mf for mf in files if mf.pointer in pick}
+            want_rows = {layout: sum(b.rows for p, mf in picked.items()
+                                     if layout_of[p] == layout for b in mf.metadata.data_blocks)
+                         for layout in LAYOUTS}
+            if out["merge"]["files"] != len(pick) or merged_rows != want_rows:
+                raise AssertionError(f"the merge of {pick}: {out['merge']}, rows by layout "
+                                     f"{merged_rows}, want {want_rows}")
+            out["merge"]["rows_by_layout"] = merged_rows
+            out["merge"]["new_files"] = len(new)
+            for name, query in shapes.items():
+                if rowset(engine.query_sync(query, timeout=600)) != results[name]:
+                    raise AssertionError(f"mixed-layout {name}: rows differ after the merge")
+            log(f"mixed-layout merge: {out['merge']}; every shape still equal")
+        finally:
+            engine.stop(timeout=600)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        shutil.rmtree(sidecar, ignore_errors=True)
+    return out
+
+
+def query_language_record(ql: dict, blocked: dict) -> dict:
+    """Phase 13's numbers for the kernels line."""
+    def cell(c: dict) -> dict:
+        return {k: v for k, v in c.items() if k.startswith(("warm_p50_ms_", "concurrent16"))
+                or k in ("warmup_s", "launches", "candidate_blocks", "checked", "files", "merge")}
+
+    return {
+        "episodes": {k: ql[k] for k in ("episodes", "mesh_episodes", "queries", "minmax_queries",
+                                        "concurrent_queries", "escapes", "flag_only", "launches", "scan_launches",
+                                        "mesh_launches", "blocked_probe_calls",
+                                        "checked_probe_calls", "checked_scan_calls",
+                                        "checked_shapes", "probe_shapes_rerun", "codecs",
+                                        "seconds")},
+        "blocked_refscale": {
+            **{k: blocked[k] for k in ("rows", "files", "blocks", "build_s", "superbank",
+                                       "classic_candidate_blocks", "classic_p50_ms",
+                                       "layout_turns")},
+            "probe": cell(blocked["probe"]), "serving": cell(blocked["serving"]),
+            "mixed": cell(blocked["mixed"])},
+    }
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--peer"]:  # phase 12's child: --peer RECORD SERVE-ARGUMENTS...
@@ -4744,7 +5515,7 @@ def main(argv=None) -> int:
         log(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     kind = phase_device()
-    dataset = start_refscale_dataset(args.target_mb, args.seed)
+    dataset = start_refscale_dataset(args.target_mb, args.seed, blocked=True)
     try:
         phase_build()
         done("build")
@@ -4752,6 +5523,10 @@ def main(argv=None) -> int:
         done("kernel")
         log(json.dumps({"scan_kernel": phase_scan_kernel(dev)}))
         done("scan kernel")
+        # Phase 13a needs no dataset: its episodes run while the child
+        # generates refscale and then its blocked copy.
+        query_language = phase_query_language(dev)
+        done("query language episodes")
         if dataset.wait() != 0:
             raise RuntimeError(f"dataset generation exited with {dataset.returncode}")
         done("dataset")
@@ -4759,7 +5534,7 @@ def main(argv=None) -> int:
         if dataset.poll() is None:
             dataset.kill()
             dataset.wait()
-    kernels = probe_phases(dev, args, cases, done)
+    kernels, engine = probe_phases(dev, args, cases, done)
     sidecar = tempfile.mkdtemp(prefix="bloomsearch-sidecar-")
     try:
         serving = phase_serving(dev, args.target_mb, args.seed, sidecar,
@@ -4787,6 +5562,13 @@ def main(argv=None) -> int:
         k[len("warm_p50_ms_"):]: v for k, v in serving.items() if k.startswith("warm_p50_ms_")})
     done("scale-out")
     log(json.dumps({"scale_out": scale_out}))
+    blocked = phase_blocked_refscale(dev, args.target_mb, args.seed, classic_p50={
+        cell: {k[len("warm_p50_ms_"):]: v for k, v in readings.items()
+               if k.startswith("warm_p50_ms_")}
+        for cell, readings in (("probe", engine), ("serving", serving))})
+    done("blocked and mixed layouts")
+    query_language = query_language_record(query_language, blocked)
+    log(json.dumps({"query_language": query_language}))
     for name, (counter, replaces) in SCAN_MODES.items():
         if counter not in scan_cases:
             raise AssertionError(f"{name} was not launched on the serving path")
@@ -4826,7 +5608,8 @@ def main(argv=None) -> int:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main path")
     log(json.dumps({"kernels": kernels, "beyond_budget": beyond, "writes": writes,
-                    "scale_out": scale_out_record(scale_out)}))
+                    "scale_out": scale_out_record(scale_out),
+                    "query_language": query_language}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
